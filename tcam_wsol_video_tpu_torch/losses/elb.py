@@ -1,0 +1,15 @@
+"""Extended log-barrier for constraints f(x) <= 0 (port of losses/elb.py):
+-log(-fx)/t where fx <= -1/t^2, else t*fx - log(1/t^2)/t + 1/t;
+mean-reduced."""
+from __future__ import annotations
+
+import torch
+
+
+def elb(fx: torch.Tensor, t: float) -> torch.Tensor:
+    t = torch.as_tensor(t, dtype=torch.float32, device=fx.device)
+    fx = fx.float()
+    ct = -1.0 / (t * t)
+    log_branch = -(1.0 / t) * torch.log((-fx).clamp_min(1e-30))
+    lin_branch = t * fx - (1.0 / t) * torch.log(1.0 / (t * t)) + 1.0 / t
+    return torch.where(fx <= ct, log_branch, lin_branch).mean()
