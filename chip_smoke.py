@@ -3,18 +3,29 @@
     python3 chip_smoke.py [--profile]
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the CUDA kernels from the sources in this checkout (nvcc);
+  1. build the CUDA kernels from the sources in this checkout (one nvcc
+     per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes and a few edge shapes, with the stated tolerance;
-  3. drive the main path: the stage-2 TCAM recipe (UnetTCAM on ResNet-50,
-     224 px, batch 32, fp32 weights and activations with TF32 cuDNN
-     convolutions, random weights from SEED) for STEPS train steps and
-     one eval step, with launch counts reset just before;
+     main paths' shapes and a few edge shapes, with the stated tolerances;
+  3. path A, the stage-2 TCAM recipe of the end-to-end script (UnetTCAM
+     on ResNet-50, 224 px, batch 32, exact dense CRF; fp32 weights and
+     activations with TF32 cuDNN convolutions, random weights from SEED):
+     STEPS train steps and one eval step, with launch counts reset just
+     before;
   4. the same first step with every convolution in full fp32, its loss
-     terms against the main path's;
-  5. at batch 2, the CRF loss value and gradient through the kernel
+     terms against path A's;
+  5. at batch 2, the exact CRF loss value and gradient through the kernel
      against the same quantities from the plain version;
-  6. time each kernel, its plain version and its bound at the main path's
+  6. path B, the production stage-2 recipe (landmark CRF, M = 1024, the
+     build_knm kernel for K_nm and K_mm): STEPS train steps and one eval
+     step; then the same first step from the same state through the fused
+     Nystrom kernels (TCAM_FUSED_LANDMARKS=1), its loss terms against path
+     B's; every Cholesky factorization checked (info == 0);
+  7. path C, the eval step with the mean-field CRF refinement (5
+     iterations of the exact kernel) at batch 32;
+  8. at batch 2, the landmark CRF loss value and gradient through the
+     kernels (both routes) against the plain versions;
+  9. time each kernel, its plain version and its bound at the main paths'
      shapes, hold kernel and plain version together there, and print the
      kernel table.
 The last line is {"ok": true, "device": {...}}.  Details go to
@@ -24,6 +35,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -56,6 +68,20 @@ CRF_RTOL = 2e-4
 # a full-width step's loss terms, TF32 convolutions against full fp32:
 # TF32 keeps 10 mantissa bits (~5e-4 relative per product)
 TF32_RTOL = 1e-2
+# K entries lie in [0, 1]: kernel and plain version differ by the fp32
+# cancellation of the norm expansion (|f|^2 up to ~2.5e2, so ~1e-4
+# absolute at most); in bf16 by one bf16 step at [0.5, 1) as well
+KNM_ATOL = 1e-4
+KNM_BF16_ATOL = 4e-3
+# the Nystrom filter (fused kernels or the K_nm build route) against its
+# plain version, relative to the largest output: the weights' fp32
+# differences go through the ridge solve (K_mm + 1e-2 I); the landmark CRF
+# loss and gradient inherit it
+LMK_RTOL = 1e-3
+# a full-width production step through the fused kernels against the
+# build route from the same state: the same model, batch and seeder
+# noise, only the filter's rounding differs
+FUSED_RTOL = 1e-3
 
 
 class Fail(RuntimeError):
@@ -87,6 +113,28 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_call_ms(fn, reps: int, warmup: int = 1) -> list:
+    """Device time of each of `reps` calls (CUDA events around each)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def spread(ms: list) -> dict:
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "n": len(ms)}
 
 
 # ------------------------------------------------------------ kernel checks
@@ -137,6 +185,99 @@ def phase_kernel_checks(seed: int) -> list:
     return rows
 
 
+def landmark_inputs(gen, b, h, w, sigma_xy, m_req, k=2):
+    """Centred features, landmark features and indices, values."""
+    from tcam_wsol_video_tpu_torch.ops.crf import _landmark_grid_indices
+    feats, vals = filter_inputs(gen, b, h, w, sigma_xy, k)
+    feats = (feats - feats.mean(1, keepdim=True)).contiguous()
+    idx = torch.from_numpy(_landmark_grid_indices(h, w, m_req)).cuda()
+    return feats, feats[:, idx].contiguous(), idx, vals
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| one image at a time (K_nm is 6.6 GB at batch 32)."""
+    return max((a[i].float() - b[i].float()).abs().max().item()
+               for i in range(a.shape[0]))
+
+
+def compare_knm(name, feats, fm, out_dtype=torch.float32, want=None):
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    got = landmarks.build_knm(feats, fm, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    if want is None:
+        want = landmarks.build_knm_plain(feats, fm)
+    err = max_abs_diff(got, want)
+    tol = KNM_ATOL if out_dtype == torch.float32 else KNM_BF16_ATOL
+    row = {"case": name, "kernel": "knm_build",
+           "shape": list(feats.shape) + [fm.shape[1]],
+           "dtype": str(out_dtype), "max_abs_err": err, "atol": tol}
+    print(f"[check] knm_build {name} {str(out_dtype)[6:]}: "
+          f"max_abs_err={err:.3e} (atol {tol})", flush=True)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite K")
+    check(err <= tol, f"knm_build {name}: kernel disagrees with plain "
+          f"({err:.3e} > {tol})")
+    return row
+
+
+def _rel_row(kernel, name, got, want, shape, rtol):
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel = err / scale
+    print(f"[check] {kernel} {name}: max_abs_err={err:.3e} "
+          f"max|ref|={scale:.3e} rel={rel:.3e} (tol {rtol})", flush=True)
+    check(bool(torch.isfinite(got).all()), f"{kernel} {name}: non-finite")
+    check(rel <= rtol, f"{kernel} {name}: kernel disagrees with plain "
+          f"({rel:.3e} > {rtol})")
+    return {"case": name, "kernel": kernel, "shape": shape,
+            "max_abs_err": err, "max_rel_err": rel, "rtol": rtol}
+
+
+def compare_nystrom(name, feats, fm, idx, vals):
+    """Pass 1 against its plain version, the fused filter and the whole
+    landmark filter on both routes against nystrom_filter_plain."""
+    from tcam_wsol_video_tpu_torch.ops import crf, linalg
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    shape = list(feats.shape) + [fm.shape[1], vals.shape[2]]
+    with linalg.record_info() as infos:
+        rhs = landmarks.nystrom_rhs(feats, fm, vals)
+        fused = landmarks.nystrom_filter(feats, vals, idx)
+        api_fused = crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                        fused=True)
+        api_build = crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                        fused=False)
+        torch.cuda.synchronize()
+        want = landmarks.nystrom_filter_plain(feats, vals, idx)
+    check(all(int(i.abs().max()) == 0 for i in infos),
+          f"{name}: a Cholesky factorization failed")
+    rows = [_rel_row("nystrom_rhs", name, rhs,
+                     landmarks.nystrom_rhs_plain(feats, fm, vals), shape,
+                     FILTER_RTOL),
+            _rel_row("nystrom_out", name, fused, want, shape, LMK_RTOL),
+            _rel_row("landmark_filter_fused", name, api_fused, want,
+                     shape, LMK_RTOL),
+            _rel_row("landmark_filter_build_route", name, api_build,
+                     want, shape, LMK_RTOL)]
+    return rows
+
+
+def phase_landmark_checks(seed: int) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    rows = []
+    cases = [("B2_224x224_D5_M1024", 2, 224, 224, 100.0, 1024),
+             ("ragged_37x53_D5_M512", 3, 37, 53, 100.0, 512),
+             ("color_only_224x448_D3_M1024", 2, 224, 448, None, 1024)]
+    for name, b, h, w, sxy, m_req in cases:
+        feats, fm, idx, vals = landmark_inputs(gen, b, h, w, sxy, m_req)
+        print(f"[landmarks] {name}: P={h * w} M={fm.shape[1]} "
+              f"D={feats.shape[2]}", flush=True)
+        rows.append(compare_knm(name, feats, fm))
+        if name.startswith("B2_224"):
+            rows.append(compare_knm(name, feats, fm, torch.bfloat16))
+        rows.append(compare_knm(name + "_Kmm", fm, fm))
+        rows += compare_nystrom(name, feats, fm, idx, vals)
+    return rows
+
+
 # --------------------------------------------------------------- main path
 def synthetic_batch(rng: np.random.Generator, args) -> dict:
     """Host batch as the JAX dataset builds it (data/dataset.py get_one):
@@ -180,11 +321,13 @@ def synthetic_batch(rng: np.random.Generator, args) -> dict:
 
 
 class CrfTimer:
-    """Times every call of the bilateral wrapper with CUDA events."""
+    """Times every call of module.<attr> (the CRF filter the path runs)
+    with CUDA events."""
 
-    def __init__(self, module):
+    def __init__(self, module, attr="gaussian_filter_apply_batched"):
         self.module = module
-        self.orig = module.gaussian_filter_apply_batched
+        self.attr = attr
+        self.orig = getattr(module, attr)
         self.pairs = []
 
     def __enter__(self):
@@ -196,11 +339,11 @@ class CrfTimer:
             e1.record()
             self.pairs.append((e0, e1))
             return out
-        self.module.gaussian_filter_apply_batched = timed
+        setattr(self.module, self.attr, timed)
         return self
 
     def __exit__(self, *exc):
-        self.module.gaussian_filter_apply_batched = self.orig
+        setattr(self.module, self.attr, self.orig)
 
     def take_ms(self) -> float:
         torch.cuda.synchronize()
@@ -209,11 +352,13 @@ class CrfTimer:
         return ms
 
 
-def build_main_path(seed: int):
-    """The recipe's model, optimizer, steps, batch and seeder generator;
-    two builds from one seed start from the same state."""
+def build_main_path(seed: int, production: bool = False):
+    """The recipe's model, optimizer, steps, batch and seeder generator
+    (production: the production stage-2 recipe, landmark CRF); two builds
+    from one seed start from the same state."""
     from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
-    from tcam_wsol_video_tpu_torch.core.config import stage2_tcam_recipe
+    from tcam_wsol_video_tpu_torch.core.config import (
+        stage2_tcam_production, stage2_tcam_recipe)
     from tcam_wsol_video_tpu_torch.core.prng import KeyChain
     from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
     from tcam_wsol_video_tpu_torch.engine.state import TrainState
@@ -223,7 +368,8 @@ def build_main_path(seed: int):
     from tcam_wsol_video_tpu_torch.models.factory import \
         create_model_from_args
 
-    args = stage2_tcam_recipe(seed=seed)
+    args = (stage2_tcam_production if production
+            else stage2_tcam_recipe)(seed=seed)
     kc = KeyChain(seed)
     torch.manual_seed(seed)
     model = create_model_from_args(args, device="cuda")
@@ -245,7 +391,7 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
     (args, model, opt, state, train_step, eval_step, batch, gen,
      switches) = build_main_path(seed)
 
-    bilateral.counts.reset()
+    reset_counts()
     records = []
     with CrfTimer(bilateral) as crf_timer:
         for i in range(steps):
@@ -270,6 +416,8 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
         eval_ms = (time.perf_counter() - t0) * 1e3
     launches = {"kernel": bilateral.counts.kernel,
                 "plain": bilateral.counts.plain}
+    check(all(c["plain"] == 0 for c in read_counts().values()),
+          "path A: a plain version ran")
     print(f"[eval] cams {tuple(cams.shape)} logits {tuple(logits.shape)} "
           f"{eval_ms:.2f} ms; cam range [{cams.min().item():.4f}, "
           f"{cams.max().item():.4f}]", flush=True)
@@ -340,6 +488,186 @@ def profile_step(train_step, state, batch, switches, gen) -> dict:
             "rows": rows[:60]}
 
 
+# ---------------------------------------------------- path B: production
+@contextlib.contextmanager
+def fused_landmarks(on: bool):
+    """TCAM_FUSED_LANDMARKS for the block (the landmark filter reads it)."""
+    old = os.environ.get("TCAM_FUSED_LANDMARKS")
+    os.environ["TCAM_FUSED_LANDMARKS"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TCAM_FUSED_LANDMARKS"]
+        else:
+            os.environ["TCAM_FUSED_LANDMARKS"] = old
+
+
+def reset_counts() -> None:
+    from tcam_wsol_video_tpu_torch.ops.cuda import bilateral, landmarks
+    for c in (bilateral.counts, landmarks.knm_counts, landmarks.rhs_counts,
+              landmarks.out_counts):
+        c.reset()
+
+
+def read_counts() -> dict:
+    from tcam_wsol_video_tpu_torch.ops.cuda import bilateral, landmarks
+    return {name: {"kernel": c.kernel, "plain": c.plain} for name, c in (
+        ("bilateral_exact", bilateral.counts),
+        ("knm_build", landmarks.knm_counts),
+        ("nystrom_rhs", landmarks.rhs_counts),
+        ("nystrom_out", landmarks.out_counts))}
+
+
+def run_steps(train_step, state, batch, switches, gen, steps, timer,
+              tag) -> list:
+    records = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = train_step(state, batch, switches, seed_weighted=True,
+                         generator=gen)
+        torch.cuda.synchronize()
+        rec = {k: float(v) for k, v in met.items()}
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["crf_ms"] = timer.take_ms()
+        records.append(rec)
+        print(f"[{tag}] step {i}: " + " ".join(
+            f"{k}={v:.6g}" for k, v in rec.items()), flush=True)
+        for k, v in rec.items():
+            check(np.isfinite(v), f"{tag} step {i}: {k} is not finite")
+    return records
+
+
+def check_infos(infos, tag) -> int:
+    check(len(infos) > 0, f"{tag}: no Cholesky solve ran")
+    bad = sum(int(i.abs().max()) != 0 for i in infos)
+    check(bad == 0, f"{tag}: {bad} Cholesky factorizations failed")
+    return len(infos)
+
+
+def phase_production(seed: int, steps: int, profile: bool) -> dict:
+    """Path B (build route), then its first step on the fused route."""
+    from tcam_wsol_video_tpu_torch.ops import crf, linalg
+    (args, model, _, state, train_step, eval_step, batch, gen,
+     switches) = build_main_path(seed, production=True)
+    print(f"[path B] crf_impl={args.crf_impl} M={args.crf_n_landmarks} "
+          f"seeds {args.sl_tc_min}/{args.sl_tc_max} ksz {args.sl_tc_ksz}",
+          flush=True)
+    with fused_landmarks(False), linalg.record_info() as infos, \
+            CrfTimer(crf, "gaussian_filter_apply_landmarks") as timer:
+        reset_counts()
+        records = run_steps(train_step, state, batch, switches, gen, steps,
+                            timer, "path B")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cams, logits = eval_step(batch["image"])
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+    n_solves = check_infos(infos, "path B")
+    print(f"[path B] launches {launches}; {n_solves} Cholesky solves, "
+          f"info all 0; eval {eval_ms:.2f} ms", flush=True)
+    check(launches["knm_build"]["kernel"] >= 2 * steps,
+          f"path B: build_knm launched {launches['knm_build']['kernel']} "
+          f"times in {steps} steps (K_nm + K_mm each)")
+    check(launches["nystrom_rhs"]["kernel"] == 0
+          and launches["nystrom_out"]["kernel"] == 0,
+          "path B: the fused kernels ran on the build route")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path B: a plain version ran")
+    check(tuple(cams.shape) == (args.batch_size, args.crop_size,
+                                args.crop_size)
+          and bool(torch.isfinite(cams).all()) and cams.min() >= 0
+          and cams.max() <= 1, "path B: eval cams wrong")
+    after = records[1:] if len(records) > 1 else records
+    out = {"steps": records, "eval_ms": eval_ms, "launches": launches,
+           "cholesky_solves": n_solves,
+           "median_step_ms": statistics.median(r["step_ms"] for r in after),
+           "median_crf_ms": statistics.median(r["crf_ms"] for r in after),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        with fused_landmarks(False):
+            out["profile"] = profile_step(train_step, state, batch,
+                                          switches, gen)
+    del state, model, batch
+    torch.cuda.empty_cache()
+
+    # the same first step from the same state through the fused kernels
+    (_, model, _, state, train_step, _, batch, gen,
+     switches) = build_main_path(seed, production=True)
+    with fused_landmarks(True), linalg.record_info() as infos, \
+            CrfTimer(crf, "gaussian_filter_apply_landmarks") as timer:
+        reset_counts()
+        fused = run_steps(train_step, state, batch, switches, gen, steps,
+                          timer, "path B fused")
+        fused_launches = read_counts()
+    check_infos(infos, "path B fused")
+    print(f"[path B fused] launches {fused_launches}", flush=True)
+    check(fused_launches["nystrom_rhs"]["kernel"] >= 1
+          and fused_launches["nystrom_out"]["kernel"] >= 1,
+          "path B fused: the Nystrom kernels did not run")
+    check(all(c["plain"] == 0 for c in fused_launches.values()),
+          "path B fused: a plain version ran")
+    gap = {}
+    for k, v in fused[0].items():
+        if k in ("step_ms", "crf_ms", "n", "n_correct"):
+            continue
+        ref = records[0][k]
+        gap[k] = abs(v - ref) / max(abs(ref), 1e-30)
+        print(f"[path B fused] step 0 {k}: fused={v:.8e} build={ref:.8e} "
+              f"rel={gap[k]:.3e} (tol {FUSED_RTOL})", flush=True)
+    for k, rel in gap.items():
+        check(rel <= FUSED_RTOL, f"fused step 0 {k} is {rel:.3e} off the "
+              f"build route")
+    out["fused"] = {"steps": fused, "launches": fused_launches,
+                    "rel_gap": gap, "rtol": FUSED_RTOL}
+    fused_after = fused[1:] if len(fused) > 1 else fused
+    out["fused_step_ms"] = statistics.median(r["step_ms"]
+                                             for r in fused_after)
+    out["fused_crf_ms"] = statistics.median(r["crf_ms"] for r in fused_after)
+    if profile:
+        with fused_landmarks(True):
+            out["fused"]["profile"] = profile_step(train_step, state, batch,
+                                                   switches, gen)
+    # path C on this model: eval with the mean-field CRF refinement
+    out["path_c"] = phase_post_process(args, model, batch)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_post_process(args, model, batch) -> dict:
+    """Path C: the eval step with crf_post_process (mean-field, exact
+    bilateral kernel twice per iteration)."""
+    from tcam_wsol_video_tpu_torch.engine.steps import make_cam_eval_step
+    args = args.replace(crf_post_process=True)
+    eval_step = make_cam_eval_step(model, args)
+    eval_step(batch["image"][:2], batch["raw_img"][:2])   # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    cams, logits = eval_step(batch["image"], batch["raw_img"])
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    print(f"[path C] eval + {args.crf_pp_iters} mean-field iterations: "
+          f"{eval_ms:.2f} ms; cams {tuple(cams.shape)} range "
+          f"[{cams.min().item():.4f}, {cams.max().item():.4f}]; launches "
+          f"{launches}", flush=True)
+    check(launches["bilateral_exact"]["kernel"] >= 2 * args.crf_pp_iters,
+          "path C: the exact kernel ran "
+          f"{launches['bilateral_exact']['kernel']} times")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path C: a plain version ran")
+    check(tuple(cams.shape) == (args.batch_size, args.crop_size,
+                                args.crop_size)
+          and bool(torch.isfinite(cams).all()) and cams.min() >= 0
+          and cams.max() <= 1, "path C: cams outside [0, 1]")
+    return {"eval_ms": eval_ms, "launches": launches,
+            "iters": args.crf_pp_iters}
+
+
 # ------------------------------------------------------------ TF32 vs fp32
 def phase_tf32_gap(seed: int, tf32_steps: list) -> dict:
     """The main path runs its cuDNN convolutions in TF32.  Rebuild the
@@ -407,6 +735,45 @@ def phase_crf_parity(seed: int) -> dict:
     return {"loss_rel": loss_rel, "grad_rel": grad_rel, "rtol": CRF_RTOL}
 
 
+def phase_landmark_parity(seed: int) -> dict:
+    """The landmark CRF loss and its segs-gradient at batch 2, 224 px,
+    M = 1024, through the kernels (build route and fused route) against
+    the same from the plain version."""
+    from tcam_wsol_video_tpu_torch.ops import crf
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    b, h, w = 2, 224, 224
+    img = torch.rand((b, h, w, 3), generator=gen, device="cuda") * 255.0
+    segs = torch.softmax(torch.randn((b, h, w, 2), generator=gen,
+                                     device="cuda"), -1)
+    feats = crf.make_bilateral_features(img, 15.0, 100.0)
+    feats = (feats - feats.mean(1, keepdim=True)).contiguous()
+    idx = torch.from_numpy(crf._landmark_grid_indices(h, w, 1024)).cuda()
+    as_ = landmarks.nystrom_filter_plain(
+        feats, segs.reshape(b, h * w, 2), idx).reshape(b, h, w, 2)
+    want_loss = (-(segs * as_).sum() / b).item()
+    want_grad = -2.0 * as_ / b
+    out = {"rtol": LMK_RTOL}
+    for route in ("build", "fused"):
+        s = segs.clone().requires_grad_(True)
+        with fused_landmarks(route == "fused"):
+            loss = crf.dense_crf_loss(img, s, 15.0, 100.0,
+                                      method="landmarks", n_landmarks=1024)
+            loss.backward()
+        loss_rel = abs(loss.item() - want_loss) / abs(want_loss)
+        grad_rel = ((s.grad - want_grad).abs().max()
+                    / want_grad.abs().max()).item()
+        print(f"[crf landmarks {route}] loss kernel={loss.item():.8e} "
+              f"plain={want_loss:.8e} rel={loss_rel:.3e}; grad rel="
+              f"{grad_rel:.3e} (tol {LMK_RTOL})", flush=True)
+        check(loss_rel <= LMK_RTOL,
+              f"landmark CRF loss ({route}) disagrees ({loss_rel:.3e})")
+        check(grad_rel <= LMK_RTOL,
+              f"landmark CRF grad ({route}) disagrees ({grad_rel:.3e})")
+        out[route] = {"loss_rel": loss_rel, "grad_rel": grad_rel}
+    return out
+
+
 # ------------------------------------------------------------------ timing
 def filter_bound(b: int, p: int, d: int, k: int) -> dict:
     """The least work of the function, not of this kernel: the weight is
@@ -444,6 +811,134 @@ def phase_timing(seed: int, b: int, crop: int) -> dict:
             **bound}
 
 
+def landmark_bound(b: int, p: int, m: int, d: int, k: int = 0,
+                   out_bytes: int = 0) -> dict:
+    """The least work of the landmark functions over E = B P M entries,
+    each entry one ex2 and, for its distance, D FMAs and an add and a min
+    (2D + 2 flops; a Nystrom pass adds K FMAs, 2K flops).  build_knm
+    (out_bytes > 0) reads feats and fm and writes E entries; a Nystrom
+    pass reads feats, fm and its (B, P, K) or (B, M, K) values and writes
+    a (B, M, K) or (B, P, K) result."""
+    e = b * p * m
+    mufu_ms = e / MUFU_RATE * 1e3
+    flop_ms = e * (2 * d + 2 + 2 * k) / FP32_FLOPS * 1e3
+    moved = 4 * b * (p + m) * d
+    moved += e * out_bytes if out_bytes else 4 * b * (p + m) * k
+    byte_ms = moved / HBM_BYTES * 1e3
+    ops_ms = max(mufu_ms, flop_ms)
+    return {"entries": e, "mufu_ms": mufu_ms, "fp32_ms": flop_ms,
+            "bytes_ms": byte_ms, "bound_ms": max(ops_ms, byte_ms),
+            "bound_by": "operations" if ops_ms >= byte_ms else "bytes"}
+
+
+def phase_landmark_timing(seed: int, b: int = 32, crop: int = 224,
+                          m_req: int = 1024) -> dict:
+    """Times build_knm, the two Nystrom passes, their plain versions, the
+    build route's two consumer products and both filter routes at path B's
+    shapes, and holds kernels and plain versions together there."""
+    from tcam_wsol_video_tpu_torch.ops import crf, linalg
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    feats, fm, idx, vals = landmark_inputs(gen, b, crop, crop, 100.0, m_req)
+    p, d = feats.shape[1], feats.shape[2]
+    m, k = fm.shape[1], vals.shape[2]
+    t = {}
+    t["knm_ms"] = cuda_time_ms(lambda: landmarks.build_knm(feats, fm), 5)
+    t["knm_bf16_ms"] = cuda_time_ms(
+        lambda: landmarks.build_knm(feats, fm, out_dtype=torch.bfloat16), 5)
+    t["knm_plain_ms"] = cuda_time_ms(
+        lambda: landmarks.build_knm_plain(feats, fm), 2)
+    knm = landmarks.build_knm(feats, fm)
+    want = landmarks.build_knm_plain(feats, fm)
+    rows = [compare_knm(f"B{b}_{crop}x{crop}_D{d}_M{m}_timed", feats, fm,
+                        want=want)]
+    del want
+    t["consumer_rhs_bmm_ms"] = cuda_time_ms(
+        lambda: torch.bmm(knm.transpose(1, 2), vals), 5)
+    rhs = torch.bmm(knm.transpose(1, 2), vals)
+    kmm = landmarks.add_ridge(landmarks.build_knm(fm, fm), 1e-2)
+    t["solve_ms"] = cuda_time_ms(
+        lambda: linalg.batched_cholesky_solve(kmm, rhs), 5)
+    alpha = linalg.batched_cholesky_solve(kmm, rhs)
+    t["consumer_out_bmm_ms"] = cuda_time_ms(lambda: torch.bmm(knm, alpha),
+                                            5)
+    del knm
+    torch.cuda.empty_cache()
+    t["rhs_ms"] = cuda_time_ms(lambda: landmarks.nystrom_rhs(feats, fm, vals),
+                               5)
+    t["rhs_plain_ms"] = cuda_time_ms(
+        lambda: landmarks.nystrom_rhs_plain(feats, fm, vals), 2)
+    rows.append(_rel_row("nystrom_rhs", f"B{b}_{crop}x{crop}_timed",
+                         landmarks.nystrom_rhs(feats, fm, vals),
+                         landmarks.nystrom_rhs_plain(feats, fm, vals),
+                         [b, p, d, m, k], FILTER_RTOL))
+    t["out_ms"] = cuda_time_ms(
+        lambda: landmarks.nystrom_out(feats, fm, alpha), 5)
+    t["out_plain_ms"] = cuda_time_ms(
+        lambda: landmarks.nystrom_out_plain(feats, fm, alpha), 2)
+    rows.append(_rel_row("nystrom_out", f"B{b}_{crop}x{crop}_timed",
+                         landmarks.nystrom_out(feats, fm, alpha),
+                         landmarks.nystrom_out_plain(feats, fm, alpha),
+                         [b, p, d, m, k], LMK_RTOL))
+    t["filter_build_route_ms"] = cuda_time_ms(
+        lambda: crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                    fused=False), 3)
+    t["filter_fused_route_ms"] = cuda_time_ms(
+        lambda: crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                    fused=True), 3)
+    t["filter_plain_ms"] = cuda_time_ms(
+        lambda: landmarks.nystrom_filter_plain(feats, vals, idx), 2)
+    # call-to-call spread of the routes and of the library solve under
+    # each of torch's linalg back ends (the port sets none)
+    t["spread"] = {
+        "filter_fused_route": spread(cuda_call_ms(
+            lambda: crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                        fused=True), 20)),
+        "filter_build_route": spread(cuda_call_ms(
+            lambda: crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                        fused=False), 10))}
+    lib0 = torch.backends.cuda.preferred_linalg_library()
+    try:
+        for lib in ("default", "cusolver", "magma"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            t["spread"][f"solve_{lib}"] = spread(cuda_call_ms(
+                lambda: linalg.batched_cholesky_solve(kmm, rhs), 20))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(lib0)
+    for key, sp in t["spread"].items():
+        print(f"[time] {key} per call: median {sp['median']:.3f} ms, min "
+              f"{sp['min']:.3f}, max {sp['max']:.3f} ({sp['n']} calls)",
+              flush=True)
+    t["bounds"] = {
+        "knm_build": landmark_bound(b, p, m, d, out_bytes=4),
+        "knm_build_bf16": landmark_bound(b, p, m, d, out_bytes=2),
+        "nystrom_rhs": landmark_bound(b, p, m, d, k),
+        "nystrom_out": landmark_bound(b, p, m, d, k),
+        # the build route's consumers read the fp32 K_nm twice
+        "consumer_bmms_bytes_ms": 2 * 4 * b * p * m / HBM_BYTES * 1e3}
+    t["checks"] = rows
+    for key in ("knm", "knm_bf16", "rhs", "out"):
+        bkey = {"knm": "knm_build", "knm_bf16": "knm_build_bf16",
+                "rhs": "nystrom_rhs", "out": "nystrom_out"}[key]
+        bd = t["bounds"][bkey]
+        plain = t.get(f"{key}_plain_ms")
+        print(f"[time] {bkey} B={b} P={p} M={m}: kernel {t[key + '_ms']:.3f}"
+              f" ms, plain " + (f"{plain:.3f} ms" if plain else "-")
+              + f", bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: mufu "
+              f"{bd['mufu_ms']:.3f}, fp32 {bd['fp32_ms']:.3f}, bytes "
+              f"{bd['bytes_ms']:.3f})", flush=True)
+    print(f"[time] build route: rhs bmm {t['consumer_rhs_bmm_ms']:.3f} ms, "
+          f"solve {t['solve_ms']:.3f} ms, out bmm "
+          f"{t['consumer_out_bmm_ms']:.3f} ms (the bmms' K_nm reads: "
+          f"{t['bounds']['consumer_bmms_bytes_ms']:.3f} ms); whole filter: "
+          f"build route {t['filter_build_route_ms']:.3f} ms, fused route "
+          f"{t['filter_fused_route_ms']:.3f} ms, plain "
+          f"{t['filter_plain_ms']:.3f} ms", flush=True)
+    del feats, fm, vals, rhs, kmm, alpha
+    torch.cuda.empty_cache()
+    return t
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -454,7 +949,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
+    from tcam_wsol_video_tpu_torch.ops.cuda import build
 
     smi = nvidia_smi()
     print(f"[device] {smi}; torch {torch.__version__} cuda "
@@ -466,48 +961,86 @@ def main(argv=None) -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    built = bilateral.build(force=True)
-    print(f"[build] bilateral.cu in {built['seconds']:.1f} s", flush=True)
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}", flush=True)
+    built = build.build_all(force=True)
+    for name, res in built.items():
+        print(f"[build] {name}.cu in {res['seconds']:.1f} s", flush=True)
+        for line in res["log"].splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
+                print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
-    result = {"device": smi, "build_s": built["seconds"],
-              "ptxas": built["log"]}
+    result = {"device": smi,
+              "build_s": {n: r["seconds"] for n, r in built.items()},
+              "ptxas": {n: r["log"] for n, r in built.items()}}
     result["checks"] = phase_kernel_checks(SEED)
+    result["checks"] += phase_landmark_checks(SEED)
     result["main_path"] = phase_main_path(SEED, STEPS, a.profile)
     result["tf32_gap"] = phase_tf32_gap(SEED, result["main_path"]["steps"])
     result["crf_parity"] = phase_crf_parity(SEED)
+    result["production"] = phase_production(SEED, STEPS, a.profile)
+    result["crf_landmark_parity"] = phase_landmark_parity(SEED)
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
     # the single-image function (the B = 1 case), off the main path
     result["timing_single_image"] = phase_timing(SEED, 1, 224)
+    lmk = phase_landmark_timing(SEED)
+    result["timing_landmarks"] = lmk
     result["checks"] += [timing["check"],
                          result["timing_single_image"]["check"]]
+    result["checks"] += lmk["checks"]
     result["seconds"] = time.perf_counter() - t0
 
+    def max_err(kernel):
+        return max(r["max_abs_err"] for r in result["checks"]
+                   if r.get("kernel", "bilateral_exact") == kernel)
+
+    prod = result["production"]
+    src = "tcam_wsol_video_tpu_torch/csrc/"
     kernels = [{
         "name": "bilateral_exact",
         "route": "cuda",
-        "source": "tcam_wsol_video_tpu_torch/csrc/bilateral.cu",
+        "source": src + "bilateral.cu",
         "replaces": "tcam_wsol_video_tpu/ops/pallas/bilateral.py:159",
         "launches": result["main_path"]["launches"]["kernel"],
-        "max_abs_err": max(r["max_abs_err"] for r in result["checks"]),
+        "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
     }]
+    # no single PyTorch call computes these functions (an unnormalized
+    # Gaussian kernel block, or its product with values): library_ms null
+    for name, key, launches in (
+            ("knm_build", "knm", prod["launches"]["knm_build"]["kernel"]),
+            ("nystrom_rhs", "rhs",
+             prod["fused"]["launches"]["nystrom_rhs"]["kernel"]),
+            ("nystrom_out", "out",
+             prod["fused"]["launches"]["nystrom_out"]["kernel"])):
+        bd = lmk["bounds"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "landmarks.cu",
+            "replaces": ("tcam_wsol_video_tpu/ops/pallas/landmarks.py:219"
+                         if name == "knm_build" else
+                         "tcam_wsol_video_tpu/ops/pallas/landmarks.py:91"),
+            "launches": launches, "max_abs_err": max_err(name),
+            "ms": lmk[f"{key}_ms"], "plain_ms": lmk[f"{key}_plain_ms"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "library_ms": None})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({**result, "kernels": kernels}, f, indent=1)
     mp = result["main_path"]
-    print(f"[summary] median step {mp['median_step_ms']:.2f} ms, CRF kernel "
-          f"in step {mp['median_crf_kernel_ms']:.2f} ms, peak "
-          f"{mp['peak_mem_gib']:.2f} GiB, total {result['seconds']:.1f} s",
-          flush=True)
+    print(f"[summary] path A: median step {mp['median_step_ms']:.2f} ms, "
+          f"CRF kernel in step {mp['median_crf_kernel_ms']:.2f} ms, peak "
+          f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
+    print(f"[summary] path B: median step {prod['median_step_ms']:.2f} ms, "
+          f"landmark CRF in step {prod['median_crf_ms']:.2f} ms, peak "
+          f"{prod['peak_mem_gib']:.2f} GiB; fused route median step "
+          f"{prod['fused_step_ms']:.2f} ms, CRF {prod['fused_crf_ms']:.2f} "
+          f"ms; path C eval {prod['path_c']['eval_ms']:.2f} ms; total "
+          f"{result['seconds']:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,9 @@ SEED_WEIGHTED = "seed_weighted"
 # ROI selection mode of the recipe
 ROI_ALL = "roi_all"
 
+# temporal dependency modes
+TIME_INSTANT = "instant"
+
 # segmentation ignore index
 SEG_IGNORE_IDX = -255
 

@@ -3,7 +3,9 @@ branches of make_train_step and make_cam_eval_step).
 
 Batches are dicts of tensors on the step's device in the JAX layout:
 image (B, H, W, 3) normalized, label (B,), raw_img (B, H, W, 3) in
-[0, 255], std_cam (B, H, W), roi (B, H, W); optional valid (B,).
+[0, 255], std_cam (B, H, W), roi (B, H, W); optional valid (B,),
+msk_bbox (B, H, W), fg_size (B,), seq_iter (B,) and frm_iter (B,) for
+the losses that read them.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from tcam_wsol_video_tpu_torch.cams.seeding import TCAMSeederCfg, tcam_seeder
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
+from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 
 
@@ -53,7 +56,11 @@ def make_train_step(master_loss: MasterLoss, args,
         out = model(batch["image"])
         logits = out["cl_logits"]
         inputs = LossInputs(epoch=state.epoch, fcams=out["fcams"],
-                            raw_img=batch["raw_img"], seeds=seeds)
+                            raw_img=batch["raw_img"], seeds=seeds,
+                            seq_iter=batch.get("seq_iter"),
+                            frm_iter=batch.get("frm_iter"),
+                            fg_size=batch.get("fg_size"),
+                            msk_bbox=batch.get("msk_bbox"))
         total, holder = master_loss.compute(inputs, state.elb_t, switches)
 
         opt.zero_grad(set_to_none=False)
@@ -76,16 +83,20 @@ def make_train_step(master_loss: MasterLoss, args,
 
 
 def make_cam_eval_step(model, args):
-    """Returns eval_step(images) -> (cams (B, crop, crop) in [0, 1],
-    cl_logits) for the TCAM task: the softmax foreground of the
-    decoder output, nan-guarded, resized to the crop and clipped."""
+    """Returns eval_step(images, raw_images=None) -> (cams (B, crop, crop)
+    in [0, 1], cl_logits) for the TCAM task: the softmax foreground of the
+    decoder output, nan-guarded, resized to the crop and clipped.  With
+    args.crf_post_process and raw_images (B, crop, crop, 3) in [0, 255],
+    the CAM is then refined by crf_pp_iters mean-field iterations."""
     if args.task not in (constants.F_CL, constants.TCAM):
         raise NotImplementedError(f"only the TCAM eval step is ported "
                                   f"(got {args.task})")
     crop = args.crop_size
+    use_crf_pp = bool(args.crf_post_process)
 
     @torch.no_grad()
-    def eval_step(images: torch.Tensor):
+    def eval_step(images: torch.Tensor,
+                  raw_images: Optional[torch.Tensor] = None):
         model.eval()
         out = model(images)
         cam = ex.seg_cam(out["fcams"])
@@ -93,6 +104,12 @@ def make_cam_eval_step(model, args):
         if tuple(cam.shape[-2:]) != (crop, crop):
             cam = resize_bilinear(cam[..., None], (crop, crop),
                                   align_corners=False)[..., 0]
-        return cam.clamp(0.0, 1.0), out["cl_logits"]
+        cam = cam.clamp(0.0, 1.0)
+        if use_crf_pp and raw_images is not None:
+            probs = torch.stack([1.0 - cam, cam], dim=-1)
+            cam = mean_field_refine(raw_images, probs,
+                                    num_iters=args.crf_pp_iters)[..., 1]
+            cam = torch.nan_to_num(cam).clamp(0.0, 1.0)
+        return cam, out["cl_logits"]
 
     return eval_step

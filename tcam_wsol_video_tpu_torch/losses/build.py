@@ -1,12 +1,13 @@
-"""MasterLoss assembly for TCAM (port of losses/build.get_loss_tcam) for
-the three losses of the stage-2 recipe."""
+"""MasterLoss assembly for TCAM (port of losses/build.get_loss_tcam): each
+flag adds its elementary loss with its lambda, epoch window and options.
+Image reconstruction (im_rec) needs the reconstruction decoder, which is
+not ported."""
 from __future__ import annotations
 
 from tcam_wsol_video_tpu_torch.losses import tcam as tcam_losses
 from tcam_wsol_video_tpu_torch.losses.core import MasterLoss
 
-_NOT_PORTED = ("im_rec", "rgb_jcrf_tc", "size_bg_g_fg_tc", "sizefg_tmp_tc",
-               "empty_out_bb_tc")
+_NOT_PORTED = ("im_rec",)
 
 
 def get_loss_tcam(args) -> MasterLoss:
@@ -14,6 +15,8 @@ def get_loss_tcam(args) -> MasterLoss:
     if on:
         raise NotImplementedError(f"TCAM losses not ported yet: {on}")
     c = dict(seg_ignore_idx=args.seg_ignore_idx)
+    crf = dict(impl=args.crf_impl, n_landmarks=args.crf_n_landmarks,
+               rff_freqs=args.crf_rff_freqs)
     ml = MasterLoss()
     if args.sl_tc:
         ml.add(tcam_losses.SelfLearningTcams(
@@ -23,13 +26,39 @@ def get_loss_tcam(args) -> MasterLoss:
         ml.add(tcam_losses.ConRanFieldTcams(
             lambda_=args.crf_tc_lambda, sigma_rgb=args.crf_tc_sigma_rgb,
             sigma_xy=args.crf_tc_sigma_xy, scale_factor=args.crf_tc_scale,
-            impl=args.crf_impl, start_ep=args.crf_tc_start_ep,
-            end_ep=args.crf_tc_end_ep, **c))
+            start_ep=args.crf_tc_start_ep, end_ep=args.crf_tc_end_ep,
+            **crf, **c))
+    if args.rgb_jcrf_tc:
+        if args.knn_tc <= 0:
+            raise ValueError("the temporal joint CRF needs clip sampling "
+                             "(knn_tc > 0)")
+        ml.add(tcam_losses.RgbJointConRanFieldTcams(
+            clip_len=2 * args.knn_tc + 1,
+            lambda_=args.rgb_jcrf_tc_lambda,
+            sigma_rgb=args.rgb_jcrf_tc_sigma_rgb,
+            scale_factor=args.rgb_jcrf_tc_scale,
+            start_ep=args.rgb_jcrf_tc_start_ep,
+            end_ep=args.rgb_jcrf_tc_end_ep, **crf, **c))
     if args.max_sizepos_tc:
         ml.add(tcam_losses.MaxSizePositiveTcams(
             lambda_=args.max_sizepos_tc_lambda,
             start_ep=args.max_sizepos_tc_start_ep,
             end_ep=args.max_sizepos_tc_end_ep, **c))
+    if args.size_bg_g_fg_tc:
+        ml.add(tcam_losses.BgSizeGreatSizeFgTcams(
+            lambda_=args.size_bg_g_fg_tc_lambda,
+            start_ep=args.size_bg_g_fg_tc_start_ep,
+            end_ep=args.size_bg_g_fg_tc_end_ep, **c))
+    if args.sizefg_tmp_tc:
+        ml.add(tcam_losses.FgSizeTcams(
+            eps=args.sizefg_tmp_tc_eps, lambda_=args.sizefg_tmp_tc_lambda,
+            start_ep=args.sizefg_tmp_tc_start_ep,
+            end_ep=args.sizefg_tmp_tc_end_ep, **c))
+    if args.empty_out_bb_tc:
+        ml.add(tcam_losses.EmptyOutsideBboxTcams(
+            lambda_=args.empty_out_bb_tc_lambda,
+            start_ep=args.empty_out_bb_tc_start_ep,
+            end_ep=args.empty_out_bb_tc_end_ep, **c))
     if not ml.losses:
         raise ValueError("TCAM training requires at least one loss flag")
     return ml

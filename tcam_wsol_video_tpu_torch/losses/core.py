@@ -19,11 +19,19 @@ class LossInputs:
     fcams: Optional[Tensor] = None           # (B, H, W, 2) decoder logits
     raw_img: Optional[Tensor] = None         # (B, H, W, 3) raw [0, 255]
     seeds: Optional[Tensor] = None           # (B, H, W) int {1, 0, ignore}
+    seq_iter: Optional[Tensor] = None        # (B,) clip/video id
+    frm_iter: Optional[Tensor] = None        # (B,) frame order in clip
+    fg_size: Optional[Tensor] = None         # (B,) fg size estimate
+    msk_bbox: Optional[Tensor] = None        # (B, H, W) bbox mask
 
 
 def softmax_fcams(fcams: Tensor) -> Tensor:
-    """Softmax over the decoder's 2 channels."""
-    return torch.softmax(fcams, dim=-1)
+    """Softmax over the decoder's channels (a 1-channel head goes through
+    a sigmoid into [1 - s, s])."""
+    if fcams.shape[-1] > 1:
+        return torch.softmax(fcams, dim=-1)
+    s = torch.sigmoid(fcams)
+    return torch.cat([1.0 - s, s], dim=-1)
 
 
 class ElementaryLoss:

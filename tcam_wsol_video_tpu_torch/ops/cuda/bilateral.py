@@ -14,85 +14,30 @@ the source for the design.
 
 A CUDA tensor goes to the kernel (or raises); only a CPU tensor takes the
 plain version, which is the tests' oracle.  The kernel library is built
-with nvcc into build/kernels/ at first use and bound with ctypes.
+with nvcc into build/kernels/ at first use and bound with ctypes
+(ops/cuda/build.py).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import os
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))))
-SOURCE = os.path.join(_REPO, "tcam_wsol_video_tpu_torch", "csrc",
-                      "bilateral.cu")
-BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libtcam_bilateral.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from tcam_wsol_video_tpu_torch.ops.cuda import build
+from tcam_wsol_video_tpu_torch.ops.cuda.build import LaunchCounter
 
 MAX_D = 8
 MAX_K = 8
 _KERNEL_D = (3, 5, 8)   # feature widths the kernel is instantiated for
 _KERNEL_K = (2, 8)      # value widths the kernel is instantiated for
 
-
-class LaunchCounter:
-    """Kernel launches (and plain-version calls) since the last reset."""
-
-    def __init__(self):
-        self.kernel = 0
-        self.plain = 0
-
-    def reset(self) -> None:
-        self.kernel = 0
-        self.plain = 0
-
-
 counts = LaunchCounter()
 
 
-def build(force: bool = False) -> dict:
-    """Compile csrc/bilateral.cu with nvcc unless an up-to-date library is
-    there.  Returns {'seconds', 'log'} (log: ptxas register/smem report)."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return {"seconds": 0.0, "log": "up to date"}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return {"seconds": time.perf_counter() - t0,
-            "log": (res.stdout + res.stderr).strip()}
-
-
 @functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(LIBRARY)
-    fn = lib.bilateral_exact_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def _forward():
+    return build.bind(build.load("bilateral"), "bilateral_exact_forward",
+                      3, 4)
 
 
 def _check(feats: torch.Tensor, vals: torch.Tensor) -> None:
@@ -114,25 +59,16 @@ def _check(feats: torch.Tensor, vals: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {feats.device}")
 
 
-def _pad_last(x: torch.Tensor, widths) -> torch.Tensor:
-    """Zero-pad the last axis up to the next width the kernel has."""
-    n = x.shape[-1]
-    target = next(w for w in widths if w >= n)
-    if target == n:
-        return x.contiguous()
-    return torch.nn.functional.pad(x, (0, target - n)).contiguous()
-
-
 def _launch(feats: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     b, p, _ = feats.shape
     k = vals.shape[2]
-    f = _pad_last(feats, _KERNEL_D)
-    v = _pad_last(vals, _KERNEL_K)
+    f = build.pad_last(feats, _KERNEL_D)
+    v = build.pad_last(vals, _KERNEL_K)
     out = torch.empty((b, p, v.shape[2]), dtype=torch.float32,
                       device=feats.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = _library().bilateral_exact_forward(
+        err = _forward()(
             f.data_ptr(), v.data_ptr(), out.data_ptr(), b, p, f.shape[2],
             v.shape[2], stream)
     if err != 0:

@@ -106,3 +106,65 @@ def test_color_dense_crf_loss_matches_jax():
     got = tcrf.color_dense_crf_loss(torch.from_numpy(imgs),
                                     torch.from_numpy(segs), 15.0)
     np.testing.assert_allclose(got.item(), float(want), rtol=CRF_RTOL)
+
+
+@pytest.mark.parametrize("scale,n_landmarks", [(1.0, 128), (0.5, 64)])
+def test_landmark_crf_loss_and_grad_match_jax(scale, n_landmarks):
+    rng = np.random.default_rng(3)
+    b, h, w = 2, 24, 24
+    imgs = _images(rng, b, h, w)
+    logits = rng.standard_normal((b, h, w, 2)).astype(np.float32)
+    segs = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+
+    def jloss(s):
+        return jcrf.dense_crf_loss(jnp.asarray(imgs), s, 15.0, 100.0,
+                                   scale_factor=scale, method="landmarks",
+                                   n_landmarks=n_landmarks)
+    want, want_g = jax.value_and_grad(jloss)(jnp.asarray(segs))
+
+    s = torch.from_numpy(segs).requires_grad_(True)
+    got = tcrf.dense_crf_loss(torch.from_numpy(imgs), s, 15.0, 100.0,
+                              scale_factor=scale, method="landmarks",
+                              n_landmarks=n_landmarks)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=CRF_RTOL)
+    g = s.grad.numpy()
+    want_g = np.asarray(want_g)
+    assert np.linalg.norm(g - want_g) <= CRF_RTOL * np.linalg.norm(want_g)
+
+
+def test_color_landmark_crf_loss_matches_jax():
+    rng = np.random.default_rng(4)
+    imgs = _images(rng, 2, 12, 36)
+    segs = rng.random((2, 12, 36, 2)).astype(np.float32)
+    want = jcrf.color_dense_crf_loss(jnp.asarray(imgs), jnp.asarray(segs),
+                                     15.0, method="landmarks",
+                                     n_landmarks=96)
+    got = tcrf.color_dense_crf_loss(torch.from_numpy(imgs),
+                                    torch.from_numpy(segs), 15.0,
+                                    method="landmarks", n_landmarks=96)
+    np.testing.assert_allclose(got.item(), float(want), rtol=CRF_RTOL)
+
+
+def test_unknown_crf_method_raises():
+    with pytest.raises(ValueError):
+        tcrf.bilateral_filter_batch(torch.zeros((1, 4, 4, 3)),
+                                    torch.zeros((1, 4, 4, 2)), 15.0, 100.0,
+                                    method="lattice")
+
+
+def test_mean_field_refine_matches_jax():
+    from tcam_wsol_video_tpu.ops.crf_inference import \
+        mean_field_refine as jrefine
+    from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
+    rng = np.random.default_rng(5)
+    imgs = _images(rng, 2, 24, 24)
+    cam = rng.random((2, 24, 24)).astype(np.float32)
+    probs = np.stack([1.0 - cam, cam], axis=-1)
+    want = np.asarray(jrefine(jnp.asarray(imgs), jnp.asarray(probs)))
+    got = mean_field_refine(torch.from_numpy(imgs),
+                            torch.from_numpy(probs)).numpy()
+    # five iterations of softmax(-U + w (W q - q)): the filter's fp32
+    # noise (FILTER_RTOL of AS ~ 1e2) passes through the softmax
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)

@@ -1,4 +1,5 @@
-"""The CUDA bilateral kernel against its plain version, on the card.
+"""The CUDA kernels (exact bilateral filter, landmark K_nm build, the two
+Nystrom passes) against their plain versions, on the card.
 
 Marked `cuda`: without a GPU these tests skip (the decision is taken in a
 fixture, never at import).  On a machine with a card:
@@ -8,13 +9,20 @@ import pytest
 import torch
 
 from tcam_wsol_video_tpu_torch.ops import crf
-from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
+from tcam_wsol_video_tpu_torch.ops.cuda import bilateral, landmarks
 
 pytestmark = pytest.mark.cuda
 
 # ex2.approx and the fp32 norm expansion against the plain version's
 # fp32 matmul, relative to the largest output (see chip_smoke.py)
 RTOL = 2e-4
+# K entries in [0, 1]: fp32 cancellation of the norm expansion (atol), and
+# one bf16 step at [0.5, 1) where the two round on either side of a tie
+KNM_ATOL = 1e-4
+KNM_BF16_ATOL = 4e-3
+# the Nystrom filter: the ridge solve (K_mm + 1e-2 I) passes the weights'
+# fp32 differences on, relative to the largest output
+LMK_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -39,3 +47,48 @@ def test_kernel_matches_plain(card, b, h, w, sigma_xy, k):
     assert bilateral.counts.kernel == before + 1
     want = bilateral.gaussian_filter_apply_plain(feats, vals)
     assert (got - want).abs().max() <= RTOL * want.abs().max()
+
+
+def _landmark_inputs(card, b, h, w, sigma_xy, m_req, k=2):
+    g = torch.Generator(device=card).manual_seed(1)
+    img = torch.rand((b, h, w, 3), generator=g, device=card) * 255.0
+    feats = crf.make_bilateral_features(img, 15.0, sigma_xy)
+    feats = (feats - feats.mean(1, keepdim=True)).contiguous()
+    idx = torch.from_numpy(crf._landmark_grid_indices(h, w, m_req)).to(card)
+    vals = torch.rand((b, h * w, k), generator=g, device=card)
+    return feats, feats[:, idx].contiguous(), idx, vals
+
+
+@pytest.mark.parametrize("b,h,w,sigma_xy,m_req", [
+    (2, 64, 64, 100.0, 512), (3, 37, 53, 100.0, 512), (2, 24, 48, None, 256)])
+def test_build_knm_matches_plain(card, b, h, w, sigma_xy, m_req):
+    feats, fm, _, _ = _landmark_inputs(card, b, h, w, sigma_xy, m_req)
+    before = landmarks.knm_counts.kernel
+    got = landmarks.build_knm(feats, fm)
+    got16 = landmarks.build_knm(feats, fm, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert landmarks.knm_counts.kernel == before + 2
+    want = landmarks.build_knm_plain(feats, fm)
+    assert (got - want).abs().max() <= KNM_ATOL
+    assert (got16.float() - want).abs().max() <= KNM_BF16_ATOL
+
+
+@pytest.mark.parametrize("b,h,w,sigma_xy,m_req,k", [
+    (2, 64, 64, 100.0, 512, 2), (3, 37, 53, 100.0, 512, 2),
+    (2, 24, 48, None, 256, 2), (1, 29, 31, 100.0, 128, 5)])
+def test_nystrom_filter_matches_plain(card, b, h, w, sigma_xy, m_req, k):
+    feats, fm, idx, vals = _landmark_inputs(card, b, h, w, sigma_xy, m_req,
+                                            k)
+    before = (landmarks.rhs_counts.kernel, landmarks.out_counts.kernel)
+    rhs = landmarks.nystrom_rhs(feats, fm, vals)
+    got = landmarks.nystrom_filter(feats, vals, idx)
+    built = crf.gaussian_filter_apply_landmarks(feats, vals, idx,
+                                                fused=False)
+    torch.cuda.synchronize()
+    assert (landmarks.rhs_counts.kernel, landmarks.out_counts.kernel) == (
+        before[0] + 2, before[1] + 1)
+    want_rhs = landmarks.nystrom_rhs_plain(feats, fm, vals)
+    assert (rhs - want_rhs).abs().max() <= RTOL * want_rhs.abs().max()
+    want = landmarks.nystrom_filter_plain(feats, vals, idx)
+    for out in (got, built):
+        assert (out - want).abs().max() <= LMK_RTOL * want.abs().max()

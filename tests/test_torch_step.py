@@ -25,6 +25,7 @@ from tcam_wsol_video_tpu.losses.build import get_loss as jget_loss
 from tcam_wsol_video_tpu_torch.cams.roi import roi_one_cam_np
 from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
 from tcam_wsol_video_tpu_torch.core.config import (TCAMConfig,
+                                                   stage2_tcam_production,
                                                    stage2_tcam_recipe)
 from tcam_wsol_video_tpu_torch.engine.optim import (build_optimizer,
                                                     param_group_labels)
@@ -53,15 +54,22 @@ def _recipe():
     return stage2_tcam_recipe(crop_size=CROP, batch_size=B)
 
 
+def _production():
+    """The production recipe (landmark CRF, 10/10 seeds) at the test's
+    size; 256 landmarks on the 32 x 32 frame (the grid gives 256)."""
+    return stage2_tcam_production(crop_size=CROP, batch_size=B,
+                                  crf_n_landmarks=256)
+
+
 def test_config_defaults_match_hparams():
     ref = get_config(C.YTOV1)
     for k, v in TCAMConfig().__dict__.items():
         assert ref[k] == v, (k, ref[k], v)
 
 
-def _jax_args():
+def _jax_args(targs=None):
     cfg = get_config(C.YTOV1)
-    cfg.update({k: v for k, v in _recipe().__dict__.items()})
+    cfg.update({k: v for k, v in (targs or _recipe()).__dict__.items()})
     cfg["compute_dtype"] = "float32"
     return HParams(cfg)
 
@@ -80,10 +88,11 @@ def _batch(seed: int) -> dict:
     }
 
 
-@pytest.fixture(scope="module")
-def stepped():
-    """One JAX step and one port step from the same state."""
-    args = _jax_args()
+def _step_both(targs, post_process: bool = False) -> dict:
+    """One JAX step and one port step from the same state under the
+    recipe `targs`, then each package's eval step (with the mean-field
+    CRF refinement when post_process)."""
+    args = _jax_args(targs)
     jm = jax_model(freeze_cl=True)
     variables = jax_variables(jm, seed=1)
     ml = jget_loss(args)
@@ -99,11 +108,13 @@ def stepped():
     new_jstate, jmet = jstep(jm, ml, opt, args, scfg)(
         jstate, {k: jnp.asarray(v) for k, v in batch.items()},
         ml.switches(0), key, jnp.float32(1.0))
+    if post_process:
+        args = _jax_args(targs.replace(crf_post_process=True))
     jcams, jlogits = jeval(jm, args)(
         new_jstate.params, new_jstate.batch_stats,
-        jnp.asarray(batch["image"]), jnp.asarray(batch["label"]), key)
+        jnp.asarray(batch["image"]), jnp.asarray(batch["label"]), key,
+        raw_images=jnp.asarray(batch["raw_img"]) if post_process else None)
 
-    targs = _recipe()
     tm = torch_model(variables, freeze_cl=True)
     tstate = TrainState(tm, build_optimizer(targs, tm, targs.lr),
                         targs.elb_init_t)
@@ -114,22 +125,64 @@ def stepped():
     tbatch["label"] = tbatch["label"].long()
     tmet = make_train_step(tml, targs, seeder_cfg_from_args(targs))(
         tstate, tbatch, tml.switches(0), True, gumbel=gumbel)
-    tcams, tlogits = make_cam_eval_step(tm, targs)(tbatch["image"])
+    if post_process:
+        targs = targs.replace(crf_post_process=True)
+    tcams, tlogits = make_cam_eval_step(tm, targs)(
+        tbatch["image"], tbatch["raw_img"] if post_process else None)
     return dict(variables=variables, jstate=new_jstate, jmet=jmet,
                 jcams=jcams, jlogits=jlogits, tm=tm, tmet=tmet,
                 tcams=tcams, tlogits=tlogits)
 
 
-@pytest.mark.parametrize("term", ["loss", "self_learning_tcams",
-                                  "con_ran_field_tcams",
-                                  "max_size_positive_tcams"])
-def test_loss_terms_match(stepped, term):
+@pytest.fixture(scope="module")
+def stepped():
+    """One JAX step and one port step from the same state."""
+    return _step_both(_recipe())
+
+
+@pytest.fixture(scope="module")
+def stepped_production():
+    """The same under the production recipe (landmark CRF), with the
+    eval step's mean-field CRF refinement on."""
+    return _step_both(_production(), post_process=True)
+
+
+TERMS = ["loss", "self_learning_tcams", "con_ran_field_tcams",
+         "max_size_positive_tcams"]
+
+
+def _check_term(stepped, term):
     got = float(stepped["tmet"][term])
     want = float(stepped["jmet"][term])
     assert abs(got - want) <= LOSS_RTOL * abs(want), (term, got, want)
 
 
+@pytest.mark.parametrize("term", TERMS)
+def test_loss_terms_match(stepped, term):
+    _check_term(stepped, term)
+
+
+@pytest.mark.parametrize("term", TERMS)
+def test_production_step_loss_terms_match(stepped_production, term):
+    _check_term(stepped_production, term)
+
+
 def test_parameter_updates_match_optax(stepped):
+    _check_updates(stepped)
+
+
+def test_production_step_parameter_updates_match_optax(stepped_production):
+    _check_updates(stepped_production)
+
+
+def test_production_eval_with_crf_post_process_matches(stepped_production):
+    # five mean-field iterations on top of the eval CAMs (STATE_RTOL of
+    # the CAM, then the filters' fp32 noise through the softmax)
+    assert_close(stepped_production["tcams"].numpy(),
+                 stepped_production["jcams"], 1e-3, "refined cams")
+
+
+def _check_updates(stepped):
     old = flax_to_state_dict(stepped["variables"])
     new = flax_to_state_dict({"params": stepped["jstate"].params,
                               "batch_stats": stepped["jstate"].batch_stats})
@@ -159,3 +212,32 @@ def test_eval_cams_match(stepped):
                  "cams")
     assert_close(stepped["tlogits"].numpy(), stepped["jlogits"], STATE_RTOL,
                  "logits")
+
+
+def test_production_recipe_matches_the_script():
+    """Every flag of cmds/train_stage2_tcam_ytov1.sh that the port's
+    config carries has the script's value in stage2_tcam_production."""
+    import os
+    import shlex
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "cmds",
+                        "train_stage2_tcam_ytov1.sh")
+    text = open(path).read()
+    main = text[text.index("python main.py"):]
+    main = main[:main.index("--exp_id")].replace("\\\n", " ")
+    toks = shlex.split(main)[2:]
+    flags = dict(zip(toks[0::2], toks[1::2]))
+    cfg = stage2_tcam_production()
+    n = 0
+    for flag, raw in flags.items():
+        key = flag.lstrip("-")
+        if key not in cfg.__dict__:
+            continue
+        want = getattr(cfg, key)
+        if isinstance(want, bool):
+            assert want == (raw == "true"), key
+        else:
+            assert want == type(want)(raw), (key, want, raw)
+        n += 1
+    assert n >= 18, n
+    assert cfg.crf_impl == "landmarks" and cfg.crf_n_landmarks == 1024
+    assert (cfg.sl_tc_min, cfg.sl_tc_max, cfg.sl_tc_ksz) == (10, 10, 1)
