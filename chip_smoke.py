@@ -6,7 +6,10 @@ Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from the sources in this checkout (one nvcc
      per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes and a few edge shapes, with the stated tolerances;
+     main paths' shapes and a few edge shapes (for the exact filter, the
+     edges of its tile-pair schedule too), with the stated tolerances, and
+     check that two launches of the exact filter at batch 32 are
+     bit-equal;
   3. path A, the stage-2 TCAM recipe of the end-to-end script (UnetTCAM
      on ResNet-50, 224 px, batch 32, exact dense CRF; fp32 weights and
      activations with TF32 cuDNN convolutions, random weights from SEED):
@@ -25,9 +28,10 @@ Phases (any failure raises and the script exits non-zero):
      iterations of the exact kernel) at batch 32;
   8. at batch 2, the landmark CRF loss value and gradient through the
      kernels (both routes) against the plain versions;
-  9. time each kernel, its plain version and its bound at the main paths'
-     shapes, hold kernel and plain version together there, and print the
-     kernel table.
+  9. time each kernel (and the exact filter's per-call spread and
+     scratch), its plain version and its bound at the main paths' shapes,
+     fail if a kernel reads under its bound, hold kernel and plain version
+     together there, and print the kernel table.
 The last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.  There is no CPU fallback: without CUDA the
 script exits non-zero and prints no result.
@@ -182,7 +186,33 @@ def phase_kernel_checks(seed: int) -> list:
     ]
     f, v = filter_inputs(gen, 2, 37, 53, None, k=1)
     rows.append(compare_filter("padded_D2_K1", f[..., :2].contiguous(), v))
+    # the pair schedule's edges (tiles of 256 pixels): P under one tile,
+    # one tile, odd and even tile counts, B = 1 with split strips, K = 8
+    for name, b, h, w, sxy, k in (
+            ("P117_below_tile", 2, 9, 13, 100.0, 2),
+            ("P256_one_tile", 2, 16, 16, 100.0, 2),
+            ("odd_3_tiles", 2, 25, 28, 100.0, 2),
+            ("even_4_tiles_D3", 2, 30, 30, None, 2),
+            ("B1_36_tiles_split", 1, 96, 96, 100.0, 2),
+            ("B1_13_tiles_K5", 1, 56, 56, 100.0, 5)):
+        rows.append(compare_filter(name, *filter_inputs(gen, b, h, w, sxy,
+                                                        k=k)))
     return rows
+
+
+def check_bit_equal(seed: int, b: int = 32, crop: int = 224) -> dict:
+    """Two launches on the same inputs at the main path's shape give
+    bit-equal results (no atomics; fixed-order reduction)."""
+    from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    feats, vals = filter_inputs(gen, b, crop, crop, 100.0)
+    first = bilateral.gaussian_filter_apply_batched(feats, vals)
+    second = bilateral.gaussian_filter_apply_batched(feats, vals)
+    same = bool(torch.equal(first, second))
+    print(f"[check] bilateral B={b} {crop}x{crop}: two launches bit-equal "
+          f"{same}", flush=True)
+    check(same, "bilateral kernel: two launches on the same inputs differ")
+    return {"case": f"B{b}_{crop}x{crop}_two_launches", "bit_equal": same}
 
 
 def landmark_inputs(gen, b, h, w, sigma_xy, m_req, k=2):
@@ -792,22 +822,42 @@ def filter_bound(b: int, p: int, d: int, k: int) -> dict:
 
 def phase_timing(seed: int, b: int, crop: int) -> dict:
     """Times kernel and plain version on the same inputs and holds them
-    together there (at B = 32 this is the main path's shape)."""
+    together there (at B = 32 this is the main path's shape); the kernel's
+    per-call spread and its scratch; raises if the kernel reads under its
+    bound."""
     from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     feats, vals = filter_inputs(gen, b, crop, crop, 100.0)
-    kernel_ms = cuda_time_ms(
-        lambda: bilateral.gaussian_filter_apply_batched(feats, vals), 3)
+    p = crop * crop
+
+    def run():
+        return bilateral.gaussian_filter_apply_batched(feats, vals)
+    kernel_ms = cuda_time_ms(run, 3)
+    per_call = spread(cuda_call_ms(run, 10 if b > 1 else 40))
     plain_ms = cuda_time_ms(
         lambda: bilateral.gaussian_filter_apply_plain(feats, vals), 1)
     check_row = compare_filter(f"B{b}_{crop}x{crop}_D5_K2_timed", feats,
                                vals, single=b == 1)
-    bound = filter_bound(b, crop * crop, feats.shape[2], vals.shape[2])
-    print(f"[time] bilateral B={b} P={crop * crop}: kernel {kernel_ms:.3f} ms"
-          f", plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-          f"(mufu {bound['mufu_ms']:.3f}, fp32 {bound['fp32_ms']:.3f}, "
-          f"bytes {bound['bytes_ms']:.4f})", flush=True)
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "check": check_row,
+    bound = filter_bound(b, p, feats.shape[2], vals.shape[2])
+    chunks = bilateral.plan(b, p, vals.shape[2],
+                            bilateral.sm_count(torch.cuda.current_device()),
+                            cap=bilateral.SCRATCH_CAP)
+    scratch = {"bytes": max(sch.scratch_bytes for _, sch in chunks),
+               "chunks": len(chunks), "nsplit": chunks[0][1].nsplit,
+               "n_tiles": chunks[0][1].n_tiles}
+    print(f"[time] bilateral B={b} P={p}: kernel {kernel_ms:.3f} ms (per "
+          f"call median {per_call['median']:.3f}, min {per_call['min']:.3f}, "
+          f"max {per_call['max']:.3f}, {per_call['n']} calls), plain "
+          f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms (mufu "
+          f"{bound['mufu_ms']:.3f}, fp32 {bound['fp32_ms']:.3f}, bytes "
+          f"{bound['bytes_ms']:.4f}); scratch {scratch['bytes'] / 1e9:.3f} "
+          f"GB in {scratch['chunks']} chunk(s), {scratch['n_tiles']} tiles, "
+          f"nsplit {scratch['nsplit']}", flush=True)
+    check(kernel_ms >= bound["bound_ms"] and per_call["min"] >=
+          bound["bound_ms"], f"bilateral B={b}: {kernel_ms:.3f} ms reads "
+          f"under its bound {bound['bound_ms']:.3f} ms")
+    return {"kernel_ms": kernel_ms, "per_call_ms": per_call,
+            "plain_ms": plain_ms, "check": check_row, "scratch": scratch,
             **bound}
 
 
@@ -927,6 +977,9 @@ def phase_landmark_timing(seed: int, b: int = 32, crop: int = 224,
               + f", bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: mufu "
               f"{bd['mufu_ms']:.3f}, fp32 {bd['fp32_ms']:.3f}, bytes "
               f"{bd['bytes_ms']:.3f})", flush=True)
+        check(t[key + "_ms"] >= bd["bound_ms"], f"{bkey}: "
+              f"{t[key + '_ms']:.3f} ms reads under its bound "
+              f"{bd['bound_ms']:.3f} ms")
     print(f"[time] build route: rhs bmm {t['consumer_rhs_bmm_ms']:.3f} ms, "
           f"solve {t['solve_ms']:.3f} ms, out bmm "
           f"{t['consumer_out_bmm_ms']:.3f} ms (the bmms' K_nm reads: "
@@ -973,6 +1026,7 @@ def main(argv=None) -> int:
               "build_s": {n: r["seconds"] for n, r in built.items()},
               "ptxas": {n: r["log"] for n, r in built.items()}}
     result["checks"] = phase_kernel_checks(SEED)
+    result["bit_equal"] = check_bit_equal(SEED)
     result["checks"] += phase_landmark_checks(SEED)
     result["main_path"] = phase_main_path(SEED, STEPS, a.profile)
     result["tf32_gap"] = phase_tf32_gap(SEED, result["main_path"]["steps"])

@@ -1,5 +1,5 @@
-"""Exact dense bilateral filter: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Exact dense bilateral filter: the CUDA kernel's wrapper, its schedule and
+its plain PyTorch version.
 
     AS[b, i] = sum_j exp(-1/2 ||f[b, i] - f[b, j]||^2) v[b, j]
 
@@ -9,8 +9,15 @@ bilateral.py:159, body _kernel_batched_sym) and, through the B = 1 case,
 gaussian_filter_apply_pallas (bilateral.py:210).  It is bound by the
 operations: the weight is symmetric, so the function needs one ex2 and
 about 2D + 2 + 4K fp32 flops per unordered pair, B P (P + 1) / 2 of them
-(4.0e10 per recipe step); the kernel computes every ordered pair.  See
-the source for the design.
+(4.0e10 per recipe step).  The kernel computes each unordered tile pair
+once on a circulant schedule (`schedule` below) and writes column sums to
+a scratch that a second kernel adds in a fixed order: no atomics, bit-equal
+results from call to call.  See the source for the design.
+
+One filter call counts one launch in `counts.kernel`; it issues two CUDA
+launches (pair kernel, reduction) per batch chunk.  The batch is chunked
+so that the scratch stays under SCRATCH_CAP bytes (one image over the cap
+still runs, alone).
 
 A CUDA tensor goes to the kernel (or raises); only a CPU tensor takes the
 plain version, which is the tests' oracle.  The kernel library is built
@@ -19,7 +26,10 @@ with nvcc into build/kernels/ at first use and bound with ctypes
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
+from typing import List, Tuple
 
 import torch
 
@@ -30,14 +40,89 @@ MAX_D = 8
 MAX_K = 8
 _KERNEL_D = (3, 5, 8)   # feature widths the kernel is instantiated for
 _KERNEL_K = (2, 8)      # value widths the kernel is instantiated for
+TILE = 256              # pixels per tile; csrc/bilateral.cu's TILE
+BLOCKS_PER_SM = 8       # split strips until the grid has this many blocks per SM
+SCRATCH_CAP = 2 << 30   # bytes of scratch per launch before B is chunked
 
 counts = LaunchCounter()
 
 
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """The pair kernel's decomposition of B images of P pixels into tiles.
+
+    Row tile i owns offsets o (key tile j = (i + o) mod n): o = 0, the
+    diagonal tile, in the row direction only; o = 1 .. (n - 1) // 2; and
+    o = n // 2 when n is even and i < n // 2.  Its offsets are cut into
+    `nsplit` contiguous pieces, one block each: grid (n nsplit, B).  Scratch
+    slot s < nsplit holds piece s's row sums, slot nsplit + o - 1 the
+    column sums of the pairs at offset o."""
+    batch: int
+    pixels: int
+    k: int
+    tile: int
+    n_tiles: int
+    nsplit: int
+
+    def row_offsets(self, i: int) -> int:
+        n = self.n_tiles
+        return 1 + (n - 1) // 2 + (1 if n % 2 == 0 and i < n // 2 else 0)
+
+    def block_offsets(self, i: int, s: int) -> range:
+        """Offsets of block (row tile i, piece s)."""
+        length = -(-(1 + self.n_tiles // 2) // self.nsplit)
+        return range(s * length, min(self.row_offsets(i), (s + 1) * length))
+
+    def column_slots(self, j: int) -> int:
+        """Column-sum slots written for column tile j (offsets 1 ..)."""
+        n = self.n_tiles
+        return (n - 1) // 2 + (1 if n % 2 == 0 and j >= n // 2 else 0)
+
+    @property
+    def scratch_shape(self) -> Tuple[int, int, int, int]:
+        return (self.batch, self.nsplit + self.n_tiles // 2, self.pixels,
+                self.k)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch_shape)
+
+
+def schedule(batch: int, pixels: int, k: int, n_sm: int,
+             tile: int = TILE) -> Schedule:
+    """Tiles, strip split and scratch of one launch.  Strips are split
+    (nsplit > 1) only when batch * n_tiles blocks would not give every SM
+    BLOCKS_PER_SM blocks, e.g. at B = 1."""
+    n = -(-pixels // tile)
+    want = BLOCKS_PER_SM * n_sm
+    nsplit = min(1 + n // 2, max(1, -(-want // (batch * n))))
+    return Schedule(batch, pixels, k, tile, n, nsplit)
+
+
+def plan(batch: int, pixels: int, k: int, n_sm: int,
+         cap: int = SCRATCH_CAP, tile: int = TILE
+         ) -> List[Tuple[int, Schedule]]:
+    """Batch chunks [(start, schedule)] whose scratch each fits in `cap`
+    (a chunk of one image may not)."""
+    per_image = schedule(1, pixels, k, n_sm, tile).scratch_bytes
+    step = max(1, cap // per_image)
+    return [(b0, schedule(min(step, batch - b0), pixels, k, n_sm, tile))
+            for b0 in range(0, batch, step)]
+
+
 @functools.lru_cache(maxsize=1)
 def _forward():
-    return build.bind(build.load("bilateral"), "bilateral_exact_forward",
-                      3, 4)
+    lib = build.load("bilateral")
+    tile = lib.bilateral_exact_tile()
+    if tile != TILE:
+        raise RuntimeError(f"csrc/bilateral.cu tiles by {tile}, the wrapper "
+                           f"by {TILE}")
+    return build.bind(lib, "bilateral_exact_forward", 4, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(feats: torch.Tensor, vals: torch.Tensor) -> None:
@@ -64,18 +149,24 @@ def _launch(feats: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     k = vals.shape[2]
     f = build.pad_last(feats, _KERNEL_D)
     v = build.pad_last(vals, _KERNEL_K)
-    out = torch.empty((b, p, v.shape[2]), dtype=torch.float32,
-                      device=feats.device)
+    kp = v.shape[2]
+    out = torch.empty((b, p, kp), dtype=torch.float32, device=feats.device)
+    forward = _forward()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = _forward()(
-            f.data_ptr(), v.data_ptr(), out.data_ptr(), b, p, f.shape[2],
-            v.shape[2], stream)
-    if err != 0:
-        raise RuntimeError(f"bilateral_exact_forward launch failed: "
-                           f"cudaError {err}")
+        for b0, sch in plan(b, p, kp, sm_count(feats.device.index or 0),
+                                cap=SCRATCH_CAP):
+            b1 = b0 + sch.batch
+            scratch = torch.empty(sch.scratch_shape, dtype=torch.float32,
+                                  device=feats.device)
+            err = forward(f[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                          scratch.data_ptr(), out[b0:b1].data_ptr(),
+                          sch.batch, p, f.shape[2], kp, sch.nsplit, stream)
+            if err != 0:
+                raise RuntimeError(f"bilateral_exact_forward launch failed: "
+                                   f"cudaError {err}")
     counts.kernel += 1
-    return out if v.shape[2] == k else out[..., :k].contiguous()
+    return out if kp == k else out[..., :k].contiguous()
 
 
 def gaussian_filter_apply_plain(feats: torch.Tensor, vals: torch.Tensor,

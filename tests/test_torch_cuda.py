@@ -33,20 +33,60 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,h,w,sigma_xy,k", [
-    (2, 64, 64, 100.0, 2), (3, 37, 53, 100.0, 2), (2, 40, 40, None, 2),
-    (1, 29, 31, 100.0, 5)])
-def test_kernel_matches_plain(card, b, h, w, sigma_xy, k):
+def _filter_inputs(card, b, h, w, sigma_xy, k):
     g = torch.Generator(device=card).manual_seed(0)
     img = torch.rand((b, h, w, 3), generator=g, device=card) * 255.0
     feats = crf.make_bilateral_features(img, 15.0, sigma_xy).contiguous()
     vals = torch.rand((b, h * w, k), generator=g, device=card)
+    return feats, vals
+
+
+# the kernel tiles pixels by bilateral.TILE = 256: P below one tile, one
+# tile exactly, odd (3, 13) and even (4, 16, 36) tile counts, and B = 1 over
+# many tiles (its strips split over several blocks)
+@pytest.mark.parametrize("b,h,w,sigma_xy,k", [
+    (2, 64, 64, 100.0, 2), (3, 37, 53, 100.0, 2), (2, 40, 40, None, 2),
+    (1, 29, 31, 100.0, 5), (2, 9, 13, 100.0, 2), (2, 16, 16, 100.0, 2),
+    (2, 25, 28, 100.0, 2), (2, 30, 30, None, 2), (1, 96, 96, 100.0, 2),
+    (1, 56, 56, 100.0, 5)],
+    ids=["64x64", "ragged_37x53", "color_only", "K5", "P117_below_tile",
+         "P256_one_tile", "odd_3_tiles", "even_4_tiles", "B1_36_tiles",
+         "B1_13_tiles_K5"])
+def test_kernel_matches_plain(card, b, h, w, sigma_xy, k):
+    feats, vals = _filter_inputs(card, b, h, w, sigma_xy, k)
     before = bilateral.counts.kernel
     got = bilateral.gaussian_filter_apply_batched(feats, vals)
     torch.cuda.synchronize()
     assert bilateral.counts.kernel == before + 1
     want = bilateral.gaussian_filter_apply_plain(feats, vals)
     assert (got - want).abs().max() <= RTOL * want.abs().max()
+
+
+@pytest.mark.parametrize("d,k", [(8, 2), (7, 8)])
+def test_kernel_wide_instances_match_plain(card, d, k):
+    g = torch.Generator(device=card).manual_seed(2)
+    feats = torch.randn((2, 700, d), generator=g, device=card) * 1.5
+    vals = torch.rand((2, 700, k), generator=g, device=card)
+    got = bilateral.gaussian_filter_apply_batched(feats, vals)
+    want = bilateral.gaussian_filter_apply_plain(feats, vals)
+    assert (got - want).abs().max() <= RTOL * want.abs().max()
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 37, 53), (1, 96, 96)])
+def test_kernel_is_deterministic(card, b, h, w):
+    feats, vals = _filter_inputs(card, b, h, w, 100.0, 2)
+    first = bilateral.gaussian_filter_apply_batched(feats, vals)
+    second = bilateral.gaussian_filter_apply_batched(feats, vals)
+    assert torch.equal(first, second)
+
+
+def test_kernel_chunks_the_batch_under_the_scratch_cap(card, monkeypatch):
+    feats, vals = _filter_inputs(card, 3, 37, 53, 100.0, 2)
+    whole = bilateral.gaussian_filter_apply_batched(feats, vals)
+    monkeypatch.setattr(bilateral, "SCRATCH_CAP", 1)
+    assert len(bilateral.plan(3, 37 * 53, 2, 132, cap=1)) == 3
+    chunked = bilateral.gaussian_filter_apply_batched(feats, vals)
+    assert (chunked - whole).abs().max() <= RTOL * whole.abs().max()
 
 
 def _landmark_inputs(card, b, h, w, sigma_xy, m_req, k=2):
