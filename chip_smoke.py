@@ -28,20 +28,34 @@ Phases (any failure raises and the script exits non-zero):
      iterations of the exact kernel) at batch 32;
   8. at batch 2, the landmark CRF loss value and gradient through the
      kernels (both routes) against the plain versions;
-  9. time each kernel (and the exact filter's per-call spread and
+  9. path D, the stage-2 trainer end to end through the CLI a user runs
+     (cli/train.main with the stage-2 flags of the end-to-end script at
+     bs 32 / 224 px, 2 epochs, random weights): a synthetic YTOv1-sized
+     set written with nvJPEG, its round trip held against the source
+     frames, a stand-in CAM store in place of stage 1; the data layer
+     (nvJPEG decode on the card, CAM fusion and ROI on the host), the
+     train step with the exact CRF kernel once per step, the ELB anneal,
+     validation with the host box sweep (MaxBoxAcc), model selection and
+     the test split at the best snapshots; launch counts reset just
+     before;
+ 10. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
-The last line is {"ok": true, "device": {...}}.  Details go to
+The sources build first: one nvcc per CUDA source (the two kernel files
+and the nvJPEG codec) and g++ for native/boxsweep.cpp, all started
+together.  The last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.  There is no CPU fallback: without CUDA the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,6 +100,18 @@ LMK_RTOL = 1e-3
 # build route from the same state: the same model, batch and seeder
 # noise, only the filter's rounding differs
 FUSED_RTOL = 1e-3
+# a baseline JPEG at quality 95 with 4:2:0 chroma, decoded, against the
+# frame it was encoded from: mean |difference| in levels per frame.  The
+# synthetic frames are uniform noise in [0, 60) with a saturated square,
+# so the subsampled chroma loses ~10 levels (libjpeg's round trip:
+# 10.2-10.6, tests/test_torch_data.py holds it to the same bound)
+JPEG_MEAN_ABS_TOL = 12.0
+
+# path D: the synthetic set at YTOv1's 10 classes (160 train shots, 5
+# steps of 32 an epoch; 320 val and 320 test frames), 2 epochs
+PATH_D_DATA = dict(n_classes=10, n_videos_per_class=2, n_shots_per_video=8,
+                   n_frames_per_shot=4, frame_hw=(270, 360))
+PATH_D_EPOCHS = 2
 
 
 class Fail(RuntimeError):
@@ -698,6 +724,140 @@ def phase_post_process(args, model, batch) -> dict:
             "iters": args.crf_pp_iters}
 
 
+# ------------------------------------------------ path D: the trainer
+def path_d_flags(root: str) -> list:
+    """The stage-2 command of cmds/e2e_synth224_tpu.sh (freeze_cl from
+    config_yaml/ytov1_stage2_tcam.yaml), 2 epochs, random weights, the
+    stand-in CAM store, no rolling checkpoints."""
+    return [
+        "--dataset", "YouTube-Objects-v1.0", "--data_root", root,
+        "--metadata_root", os.path.join(root, "folds"), "--crop_size", "224",
+        "--resize_size", "256", "--cam_curve_interval", "0.01",
+        "--num_workers", "4", "--task", "TCAM", "--arch", "UnetTCAM",
+        "--batch_size", "32", "--eval_batch_size", "32",
+        "--max_epochs", str(PATH_D_EPOCHS), "--lr", "0.01",
+        "--freeze_cl", "True", "--seed", str(SEED),
+        "--elb_init_t", "1.0", "--elb_max_t", "10.0", "--elb_mulcoef",
+        "1.01", "--sl_tc", "True", "--sl_tc_lambda", "1.0", "--sl_tc_min",
+        "1", "--sl_tc_max", "1", "--sl_tc_ksz", "3", "--sl_tc_max_p", "0.6",
+        "--sl_tc_min_p", "0.1", "--sl_tc_seed_tech", "seed_weighted",
+        "--sl_tc_use_roi", "True", "--sl_tc_roi_method", "roi_all",
+        "--sl_tc_roi_min_size", "0.05", "--sl_tc_knn", "1",
+        "--sl_tc_knn_mode", "before", "--sl_tc_knn_t", "0.0",
+        "--crf_tc", "True", "--crf_tc_lambda", "2e-9",
+        "--crf_tc_sigma_rgb", "15.0", "--crf_tc_sigma_xy", "100.0",
+        "--crf_tc_scale", "1.0", "--max_sizepos_tc", "True",
+        "--max_sizepos_tc_lambda", "0.01",
+        "--std_cams_folder", os.path.join(root, "cams"),
+        "--checkpoint_save", "0", "--outd", os.path.join(root, "exps"),
+        "--exp_id", "s2", "--log_every", "0", "--device", "cuda"]
+
+
+def _eval_line(tag: str, r: dict) -> str:
+    return (f"[{tag}] {r['n_images']} images, {r['images_per_s']:.1f} "
+            f"images/s, forward {r['forward_ms_per_batch']:.2f} ms/batch, "
+            f"native sweep {r['sweep_ms_per_image']:.3f} ms/image; "
+            f"classification {r['classification']:.2f}, MaxBoxAcc "
+            f"30/50/70 {r['maxboxacc_30']:.2f}/{r['maxboxacc_50']:.2f}/"
+            f"{r['maxboxacc_70']:.2f}")
+
+
+def phase_trainer(seed: int) -> dict:
+    """Path D: the synthetic set (nvJPEG), its JPEG round trip against the
+    source frames, the stand-in CAM store, then cli/train.main with the
+    counts reset just before."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    from tcam_wsol_video_tpu_torch.data.synthetic import (
+        make_stand_in_cam_store, make_synthetic_dataset)
+    from tcam_wsol_video_tpu_torch.losses.elb import update_t
+
+    root = os.path.join(ROOT, "build", "chip_smoke_trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    synth = make_synthetic_dataset(root, seed=seed, device="cuda",
+                                   keep_frames=32, **PATH_D_DATA)
+    gen_s = time.perf_counter() - t0
+    errs = []
+    for fid, src in synth["frames"].items():
+        dec = nvjpeg_loader.decode(os.path.join(synth["data_root"], fid))
+        errs.append(float(np.abs(dec.cpu().numpy().astype(np.float64)
+                                 - src).mean()))
+    print(f"[path D] synthetic set {PATH_D_DATA} written in {gen_s:.2f} s "
+          f"(nvJPEG, quality 95); round trip of {len(errs)} frames: mean "
+          f"|decoded - source| median {statistics.median(errs):.3f}, max "
+          f"{max(errs):.3f} levels (tol {JPEG_MEAN_ABS_TOL})", flush=True)
+    check(max(errs) <= JPEG_MEAN_ABS_TOL,
+          f"nvJPEG round trip is {max(errs):.3f} levels off the source")
+    t0 = time.perf_counter()
+    make_stand_in_cam_store(synth["metadata_root"], os.path.join(root,
+                                                                 "cams"),
+                            seed=seed)
+    store_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(path_d_flags(root))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    train = out["records"]["train"]
+    evals = out["records"]["eval"]
+    steps = sum(r["steps"] for r in train)
+    check(len(train) == PATH_D_EPOCHS and all(r["steps"] == 5
+                                              for r in train),
+          f"path D: steps per epoch {[r['steps'] for r in train]}, not 5")
+    t = 1.0
+    for r in train:
+        t = update_t(t, 1.01, 10.0)
+        print(f"[path D epoch {r['epoch']}] wall {r['wall_ms']:.1f} ms, "
+              f"{r['steps']} steps, median step {r['median_step_ms']:.2f} "
+              f"ms (CUDA events), data wait {r['data_wait_ms_per_step']:.2f}"
+              f" ms/step (pixels {r['data_pixels_ms_per_step']:.2f}, CAM "
+              f"side {r['data_cams_ms_per_step']:.2f}); loss "
+              f"{r['loss']:.6g}; ELB t after the epoch "
+              f"{r['elb_t']:.6f}; the steps' spans cover "
+              f"{100 * sum(r['step_ms']) / r['wall_ms']:.1f}% of the epoch",
+              flush=True)
+        check(np.isfinite(r["loss"]), f"path D epoch {r['epoch']}: loss")
+        check(r["elb_t"] == t, f"path D: ELB t {r['elb_t']} after epoch "
+              f"{r['epoch']}, expected {t}")
+    for i, e in enumerate(evals):
+        when = (e["snapshot"] if e["snapshot"] else "before training"
+                if i == 0 else f"after epoch {e['epoch']}")
+        print(_eval_line(f"path D eval {e['split']} {when}", e), flush=True)
+        check(e["n_images"] == 320, f"path D: {e['n_images']} images in "
+              f"{e['split']}")
+        check(all(0.0 <= e[f"maxboxacc_{s}"] <= 100.0 for s in (30, 50, 70)),
+              "path D: MaxBoxAcc outside [0, 100]")
+    check(constants.BEST_LOC in out["test"], "path D: no test evaluation "
+          "at the best-localization snapshot")
+    best = out["test"][constants.BEST_LOC]
+    print(_eval_line("path D test best_localization",
+                     {**best, **best["timing"]}), flush=True)
+    k = launches["bilateral_exact"]["kernel"]
+    print(f"[path D launches] bilateral_exact {k} in {steps} steps "
+          f"({k / steps:.2f} per step); {launches}", flush=True)
+    check(k == steps, f"path D: the exact CRF kernel launched {k} times in "
+          f"{steps} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path D: a plain version ran")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[path D] cli/train.main {wall_s:.2f} s (CAM store {store_s:.2f}"
+          f" s), peak {peak:.2f} GiB", flush=True)
+    shutil.rmtree(root)
+    return {"wall_s": wall_s, "gen_s": gen_s, "store_s": store_s,
+            "jpeg_round_trip_mean_abs": errs, "launches": launches,
+            "steps": steps, "train": train, "eval": evals,
+            "test_best_loc": {k: v for k, v in best.items()
+                              if k != "curves"},
+            "peak_mem_gib": peak}
+
+
 # ------------------------------------------------------------ TF32 vs fp32
 def phase_tf32_gap(seed: int, tf32_steps: list) -> dict:
     """The main path runs its cuDNN convolutions in TF32.  Rebuild the
@@ -1002,6 +1162,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    from tcam_wsol_video_tpu_torch.core import nativebuild
     from tcam_wsol_video_tpu_torch.ops.cuda import build
 
     smi = nvidia_smi()
@@ -1014,7 +1175,12 @@ def main(argv=None) -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    built = build.build_all(force=True)
+    with cf.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(nativebuild.build_all, ["boxsweep"], True)
+        built = build.build_all(force=True)
+        host_built = host.result()
+    for name, res in host_built.items():
+        print(f"[build] {name} (g++) in {res['seconds']:.1f} s", flush=True)
     for name, res in built.items():
         print(f"[build] {name}.cu in {res['seconds']:.1f} s", flush=True)
         for line in res["log"].splitlines():
@@ -1023,7 +1189,8 @@ def main(argv=None) -> int:
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
     result = {"device": smi,
-              "build_s": {n: r["seconds"] for n, r in built.items()},
+              "build_s": {n: r["seconds"] for n, r in {**built,
+                                                        **host_built}.items()},
               "ptxas": {n: r["log"] for n, r in built.items()}}
     result["checks"] = phase_kernel_checks(SEED)
     result["bit_equal"] = check_bit_equal(SEED)
@@ -1033,6 +1200,7 @@ def main(argv=None) -> int:
     result["crf_parity"] = phase_crf_parity(SEED)
     result["production"] = phase_production(SEED, STEPS, a.profile)
     result["crf_landmark_parity"] = phase_landmark_parity(SEED)
+    result["trainer"] = phase_trainer(SEED)
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
     # the single-image function (the B = 1 case), off the main path
@@ -1054,8 +1222,11 @@ def main(argv=None) -> int:
         "name": "bilateral_exact",
         "route": "cuda",
         "source": src + "bilateral.cu",
-        "replaces": "tcam_wsol_video_tpu/ops/pallas/bilateral.py:159",
-        "launches": result["main_path"]["launches"]["kernel"],
+        "replaces": "tcam_wsol_video_tpu/ops/pallas/bilateral.py:183",
+        # path D, this slice's main path; path A's count beside it
+        "launches": result["trainer"]["launches"]["bilateral_exact"][
+            "kernel"],
+        "launches_path_a": result["main_path"]["launches"]["kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -1074,9 +1245,9 @@ def main(argv=None) -> int:
         bd = lmk["bounds"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + "landmarks.cu",
-            "replaces": ("tcam_wsol_video_tpu/ops/pallas/landmarks.py:219"
+            "replaces": ("tcam_wsol_video_tpu/ops/pallas/landmarks.py:248"
                          if name == "knm_build" else
-                         "tcam_wsol_video_tpu/ops/pallas/landmarks.py:91"),
+                         "tcam_wsol_video_tpu/ops/pallas/landmarks.py:137"),
             "launches": launches, "max_abs_err": max_err(name),
             "ms": lmk[f"{key}_ms"], "plain_ms": lmk[f"{key}_plain_ms"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -1093,7 +1264,16 @@ def main(argv=None) -> int:
           f"landmark CRF in step {prod['median_crf_ms']:.2f} ms, peak "
           f"{prod['peak_mem_gib']:.2f} GiB; fused route median step "
           f"{prod['fused_step_ms']:.2f} ms, CRF {prod['fused_crf_ms']:.2f} "
-          f"ms; path C eval {prod['path_c']['eval_ms']:.2f} ms; total "
+          f"ms; path C eval {prod['path_c']['eval_ms']:.2f} ms", flush=True)
+    tr = result["trainer"]
+    print(f"[summary] path D: {tr['steps']} steps in {PATH_D_EPOCHS} epochs,"
+          f" median step " + "/".join(f"{r['median_step_ms']:.2f}"
+                                       for r in tr["train"])
+          + " ms, data wait " + "/".join(
+              f"{r['data_wait_ms_per_step']:.2f}" for r in tr["train"])
+          + f" ms/step, test MaxBoxAcc at best localization "
+          f"{tr['test_best_loc']['maxboxacc_50']:.2f} (IoU 50); "
+          f"cli/train.main {tr['wall_s']:.1f} s; total "
           f"{result['seconds']:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

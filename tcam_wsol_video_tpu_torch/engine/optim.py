@@ -53,10 +53,18 @@ def build_optimizer(args, model: nn.Module, lr: float) -> DecayAllSGD:
     params = dict(model.named_parameters())
     groups = [
         {"params": [params[n] for n, l in labels.items() if l == "base"],
-         "lr": lr},
+         "lr": lr, "ratio": 1.0},
         {"params": [params[n] for n, l in labels.items() if l == "head"],
-         "lr": lr * float(args.lr_classifier_ratio)},
+         "lr": lr * float(args.lr_classifier_ratio),
+         "ratio": float(args.lr_classifier_ratio)},
     ]
     return DecayAllSGD(groups, lr=lr, momentum=args.momentum,
                        weight_decay=args.weight_decay,
                        nesterov=args.nesterov)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The per-epoch schedule tick: each group runs at lr times its
+    ratio."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr * group["ratio"]

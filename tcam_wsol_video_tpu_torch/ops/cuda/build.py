@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every source csrc/<name>.cu is compiled the same way: nvcc for sm_90a
-into a shared library with a plain C interface,
+(plus the source's libraries in LINK) into a shared library with a plain
+C interface,
 build/kernels/libtcam_<name>.so, at first use, and loaded with ctypes.
 Each C entry point takes device pointers and the stream as void* and
 returns cudaGetLastError() after its launches; the Python wrappers raise
@@ -24,7 +25,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 CSRC = os.path.join(_REPO, "tcam_wsol_video_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SOURCES = ("bilateral", "landmarks")
+SOURCES = ("bilateral", "landmarks", "nvjpeg_codec")
+# link flags of a source beyond the CUDA runtime
+LINK = {"nvjpeg_codec": ["-lnvjpeg"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -72,7 +75,8 @@ def build_all(names: Iterable[str] = SOURCES,
         for n in names:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, source(n)],
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, source(n),
+                                     *LINK.get(n, [])],
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs[n] = (proc, tmp)

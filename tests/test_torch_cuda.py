@@ -132,3 +132,38 @@ def test_nystrom_filter_matches_plain(card, b, h, w, sigma_xy, m_req, k):
     want = landmarks.nystrom_filter_plain(feats, vals, idx)
     for out in (got, built):
         assert (out - want).abs().max() <= LMK_RTOL * want.abs().max()
+
+
+# a baseline JPEG at quality 95 with 4:2:0 chroma against its source
+# frame (noise in [0, 60) and a saturated square): mean |difference| in
+# levels (see chip_smoke.py)
+JPEG_MEAN_ABS_TOL = 12.0
+
+
+def test_nvjpeg_round_trip_and_card_route(card, tmp_path):
+    """nvJPEG encode + decode against the source frames, and the card
+    route's batch (decode, resize, crop, flip, normalize on the card)
+    against the same arithmetic on the CPU from the card's decoded
+    frames."""
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    from tcam_wsol_video_tpu_torch.data.synthetic import write_jpeg
+    rng = np.random.default_rng(0)
+    paths, frames = [], []
+    for i in range(4):
+        img = (rng.random((90, 120, 3)) * 60).astype(np.uint8)
+        img[20:50, 30 + i:70 + i] = (220, 40, 40)
+        path = str(tmp_path / f"f{i}.jpg")
+        write_jpeg(path, img, card)
+        dec = nvjpeg_loader.decode(path, card)
+        assert dec.shape == (90, 120, 3) and dec.dtype == torch.uint8
+        assert np.abs(dec.cpu().numpy().astype(float) - img).mean() <= \
+            JPEG_MEAN_ABS_TOL
+        paths.append(path)
+        frames.append(dec.cpu())
+    xs, ys, flips = [0, 3, 8, 1], [8, 0, 2, 7], [0, 1, 0, 1]
+    norm, raw = nvjpeg_loader.load_batch(paths, 40, 32, xs, ys, flips, card)
+    want_n, want_r = nvjpeg_loader.resize_crop_normalize(
+        torch.stack(frames), 40, 32, xs, ys, flips)
+    assert torch.allclose(raw.cpu(), want_r, atol=1e-4, rtol=0)
+    assert torch.allclose(norm.cpu(), want_n, atol=1e-5, rtol=0)
