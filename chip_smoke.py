@@ -38,7 +38,19 @@ Phases (any failure raises and the script exits non-zero):
      validation with the host box sweep (MaxBoxAcc), model selection and
      the test split at the best snapshots; launch counts reset just
      before;
- 10. time each kernel (and the exact filter's per-call spread and
+ 10. path E, the two-stage chain of the end-to-end script on path D's
+     set, through the CLIs a user runs, launch counts reset just before:
+     stage 1 (cli/train.main, STD_CL, bs 32 / 224 px, lr 0.001, 8 epochs,
+     random weights), cli/dump_cams.main at its best-localization
+     snapshot (past step 0; 640 CAMs and thresholds; the card's pixel
+     route held against the source frames, one batch's CAMs against the
+     CPU's), stage 2 with path D's flags from another seed over the dumped
+     store, starting from stage 1's best-classification encoder and head
+     (past step 0; its own weights checked unequal to them before the
+     load and equal after; the exact CRF kernel once per step), and
+     cli/evaluate.main at stage 2's
+     best-localization snapshot against the trainer's own test pass;
+ 11. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -112,6 +124,17 @@ JPEG_MEAN_ABS_TOL = 12.0
 PATH_D_DATA = dict(n_classes=10, n_videos_per_class=2, n_shots_per_video=8,
                    n_frames_per_shot=4, frame_hw=(270, 360))
 PATH_D_EPOCHS = 2
+# path E, the two-stage chain on the same set: stage 1 for 8 epochs, the
+# fewest after which, from random weights at the stage-1 recipe's lr
+# 0.001, validation picks both best snapshots past step 0 (on the card:
+# classification leaves 10.00 only after epoch 6, localization passes the
+# untrained weights' after epoch 5)
+PATH_E_EPOCHS = 8
+# one dump batch's CAMs, the card (TF32 cuDNN convolutions) against the
+# CPU (fp32) on the same pixels and weights: min-max normalized maps in
+# [0, 1], absolute; TF32's 10 mantissa bits (~5e-4 relative a product,
+# path A's TF32 gap) through ~50 layers, then the normalization
+CAM_TF32_ATOL = 2e-2
 
 
 class Fail(RuntimeError):
@@ -725,18 +748,28 @@ def phase_post_process(args, model, batch) -> dict:
 
 
 # ------------------------------------------------ path D: the trainer
-def path_d_flags(root: str) -> list:
-    """The stage-2 command of cmds/e2e_synth224_tpu.sh (freeze_cl from
-    config_yaml/ytov1_stage2_tcam.yaml), 2 epochs, random weights, the
-    stand-in CAM store, no rolling checkpoints."""
+def common_flags(root: str, seed: int = SEED) -> list:
+    """COMMON of cmds/e2e_synth224_tpu.sh on the synthetic set at root,
+    with the seed and the card."""
     return [
         "--dataset", "YouTube-Objects-v1.0", "--data_root", root,
         "--metadata_root", os.path.join(root, "folds"), "--crop_size", "224",
         "--resize_size", "256", "--cam_curve_interval", "0.01",
-        "--num_workers", "4", "--task", "TCAM", "--arch", "UnetTCAM",
+        "--num_workers", "4", "--seed", str(seed), "--log_every", "0",
+        "--device", "cuda"]
+
+
+def path_d_flags(root: str, store: str, outd: str, pretrained: str = "",
+                 seed: int = SEED) -> list:
+    """The stage-2 command of cmds/e2e_synth224_tpu.sh (freeze_cl from
+    config_yaml/ytov1_stage2_tcam.yaml), 2 epochs, random weights from
+    `seed`, over the CAM store `store` (and the stage-1 folder
+    `pretrained`, when given), no rolling checkpoints."""
+    return common_flags(root, seed) + [
+        "--task", "TCAM", "--arch", "UnetTCAM",
         "--batch_size", "32", "--eval_batch_size", "32",
         "--max_epochs", str(PATH_D_EPOCHS), "--lr", "0.01",
-        "--freeze_cl", "True", "--seed", str(SEED),
+        "--freeze_cl", "True",
         "--elb_init_t", "1.0", "--elb_max_t", "10.0", "--elb_mulcoef",
         "1.01", "--sl_tc", "True", "--sl_tc_lambda", "1.0", "--sl_tc_min",
         "1", "--sl_tc_max", "1", "--sl_tc_ksz", "3", "--sl_tc_max_p", "0.6",
@@ -747,10 +780,19 @@ def path_d_flags(root: str) -> list:
         "--crf_tc", "True", "--crf_tc_lambda", "2e-9",
         "--crf_tc_sigma_rgb", "15.0", "--crf_tc_sigma_xy", "100.0",
         "--crf_tc_scale", "1.0", "--max_sizepos_tc", "True",
-        "--max_sizepos_tc_lambda", "0.01",
-        "--std_cams_folder", os.path.join(root, "cams"),
-        "--checkpoint_save", "0", "--outd", os.path.join(root, "exps"),
-        "--exp_id", "s2", "--log_every", "0", "--device", "cuda"]
+        "--max_sizepos_tc_lambda", "0.01", "--std_cams_folder", store,
+        "--checkpoint_save", "0", "--outd", outd, "--exp_id", "s2"] + (
+            ["--folder_pre_trained_cl", pretrained] if pretrained else [])
+
+
+def path_e_stage1_flags(root: str, outd: str) -> list:
+    """The stage-1 command of cmds/e2e_synth224_tpu.sh with the batch and
+    learning rate of config_yaml/ytov1_stage1_cam.yaml (32, 0.001),
+    PATH_E_EPOCHS epochs, random weights, no rolling checkpoints."""
+    return common_flags(root) + [
+        "--task", "STD_CL", "--batch_size", "32", "--eval_batch_size", "32",
+        "--max_epochs", str(PATH_E_EPOCHS), "--lr", "0.001",
+        "--checkpoint_save", "0", "--outd", outd, "--exp_id", "s1"]
 
 
 def _eval_line(tag: str, r: dict) -> str:
@@ -762,16 +804,12 @@ def _eval_line(tag: str, r: dict) -> str:
             f"{r['maxboxacc_70']:.2f}")
 
 
-def phase_trainer(seed: int) -> dict:
-    """Path D: the synthetic set (nvJPEG), its JPEG round trip against the
-    source frames, the stand-in CAM store, then cli/train.main with the
-    counts reset just before."""
-    from tcam_wsol_video_tpu_torch.cli import train as cli_train
-    from tcam_wsol_video_tpu_torch.core import constants
+def make_trainer_set(seed: int) -> dict:
+    """The YTOv1-sized synthetic set of paths D and E, written with nvJPEG
+    under build/, and its JPEG round trip against the source frames."""
     from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
-    from tcam_wsol_video_tpu_torch.data.synthetic import (
-        make_stand_in_cam_store, make_synthetic_dataset)
-    from tcam_wsol_video_tpu_torch.losses.elb import update_t
+    from tcam_wsol_video_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
 
     root = os.path.join(ROOT, "build", "chip_smoke_trainer")
     shutil.rmtree(root, ignore_errors=True)
@@ -784,37 +822,33 @@ def phase_trainer(seed: int) -> dict:
         dec = nvjpeg_loader.decode(os.path.join(synth["data_root"], fid))
         errs.append(float(np.abs(dec.cpu().numpy().astype(np.float64)
                                  - src).mean()))
-    print(f"[path D] synthetic set {PATH_D_DATA} written in {gen_s:.2f} s "
+    print(f"[data] synthetic set {PATH_D_DATA} written in {gen_s:.2f} s "
           f"(nvJPEG, quality 95); round trip of {len(errs)} frames: mean "
           f"|decoded - source| median {statistics.median(errs):.3f}, max "
           f"{max(errs):.3f} levels (tol {JPEG_MEAN_ABS_TOL})", flush=True)
     check(max(errs) <= JPEG_MEAN_ABS_TOL,
           f"nvJPEG round trip is {max(errs):.3f} levels off the source")
-    t0 = time.perf_counter()
-    make_stand_in_cam_store(synth["metadata_root"], os.path.join(root,
-                                                                 "cams"),
-                            seed=seed)
-    store_s = time.perf_counter() - t0
+    return {"root": root, "synth": synth, "gen_s": gen_s,
+            "jpeg_round_trip_mean_abs": errs}
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = cli_train.main(path_d_flags(root))
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = read_counts()
+
+def report_trainer(tag: str, out: dict, epochs: int) -> dict:
+    """Checks and prints a cli/train.main run of `epochs` epochs of 5 steps
+    on the synthetic set: per epoch the step, data wait, loss and ELB t;
+    per eval pass its throughput, classification and MaxBoxAcc (320
+    images); the test pass at the best-localization snapshot.  Returns
+    {'steps', 'best'}."""
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.losses.elb import update_t
 
     train = out["records"]["train"]
     evals = out["records"]["eval"]
-    steps = sum(r["steps"] for r in train)
-    check(len(train) == PATH_D_EPOCHS and all(r["steps"] == 5
-                                              for r in train),
-          f"path D: steps per epoch {[r['steps'] for r in train]}, not 5")
+    check(len(train) == epochs and all(r["steps"] == 5 for r in train),
+          f"{tag}: steps per epoch {[r['steps'] for r in train]}, not 5")
     t = 1.0
     for r in train:
         t = update_t(t, 1.01, 10.0)
-        print(f"[path D epoch {r['epoch']}] wall {r['wall_ms']:.1f} ms, "
+        print(f"[{tag} epoch {r['epoch']}] wall {r['wall_ms']:.1f} ms, "
               f"{r['steps']} steps, median step {r['median_step_ms']:.2f} "
               f"ms (CUDA events), data wait {r['data_wait_ms_per_step']:.2f}"
               f" ms/step (pixels {r['data_pixels_ms_per_step']:.2f}, CAM "
@@ -823,22 +857,51 @@ def phase_trainer(seed: int) -> dict:
               f"{r['elb_t']:.6f}; the steps' spans cover "
               f"{100 * sum(r['step_ms']) / r['wall_ms']:.1f}% of the epoch",
               flush=True)
-        check(np.isfinite(r["loss"]), f"path D epoch {r['epoch']}: loss")
-        check(r["elb_t"] == t, f"path D: ELB t {r['elb_t']} after epoch "
+        check(np.isfinite(r["loss"]), f"{tag} epoch {r['epoch']}: loss")
+        check(r["elb_t"] == t, f"{tag}: ELB t {r['elb_t']} after epoch "
               f"{r['epoch']}, expected {t}")
     for i, e in enumerate(evals):
         when = (e["snapshot"] if e["snapshot"] else "before training"
                 if i == 0 else f"after epoch {e['epoch']}")
-        print(_eval_line(f"path D eval {e['split']} {when}", e), flush=True)
-        check(e["n_images"] == 320, f"path D: {e['n_images']} images in "
+        print(_eval_line(f"{tag} eval {e['split']} {when}", e), flush=True)
+        check(e["n_images"] == 320, f"{tag}: {e['n_images']} images in "
               f"{e['split']}")
         check(all(0.0 <= e[f"maxboxacc_{s}"] <= 100.0 for s in (30, 50, 70)),
-              "path D: MaxBoxAcc outside [0, 100]")
-    check(constants.BEST_LOC in out["test"], "path D: no test evaluation "
+              f"{tag}: MaxBoxAcc outside [0, 100]")
+    check(constants.BEST_LOC in out["test"], f"{tag}: no test evaluation "
           "at the best-localization snapshot")
     best = out["test"][constants.BEST_LOC]
-    print(_eval_line("path D test best_localization",
+    print(_eval_line(f"{tag} test best_localization",
                      {**best, **best["timing"]}), flush=True)
+    return {"steps": sum(r["steps"] for r in train),
+            "best": {k: v for k, v in best.items() if k != "curves"}}
+
+
+def phase_trainer(seed: int, data: dict) -> dict:
+    """Path D: the stand-in CAM store, then cli/train.main with the counts
+    reset just before."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.data.synthetic import \
+        make_stand_in_cam_store
+
+    root = data["root"]
+    t0 = time.perf_counter()
+    make_stand_in_cam_store(data["synth"]["metadata_root"],
+                            os.path.join(root, "cams"), seed=seed)
+    store_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(path_d_flags(root, os.path.join(root, "cams"),
+                                      os.path.join(root, "exps")))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    rep = report_trainer("path D", out, PATH_D_EPOCHS)
+    steps = rep["steps"]
     k = launches["bilateral_exact"]["kernel"]
     print(f"[path D launches] bilateral_exact {k} in {steps} steps "
           f"({k / steps:.2f} per step); {launches}", flush=True)
@@ -849,13 +912,216 @@ def phase_trainer(seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[path D] cli/train.main {wall_s:.2f} s (CAM store {store_s:.2f}"
           f" s), peak {peak:.2f} GiB", flush=True)
-    shutil.rmtree(root)
-    return {"wall_s": wall_s, "gen_s": gen_s, "store_s": store_s,
-            "jpeg_round_trip_mean_abs": errs, "launches": launches,
-            "steps": steps, "train": train, "eval": evals,
-            "test_best_loc": {k: v for k, v in best.items()
-                              if k != "curves"},
-            "peak_mem_gib": peak}
+    return {"wall_s": wall_s, "gen_s": data["gen_s"], "store_s": store_s,
+            "jpeg_round_trip_mean_abs": data["jpeg_round_trip_mean_abs"],
+            "launches": launches, "steps": steps, "train":
+            out["records"]["train"], "eval": out["records"]["eval"],
+            "test_best_loc": rep["best"], "peak_mem_gib": peak}
+
+
+# -------------------------------------------- path E: the two-stage chain
+def check_dump_route(data: dict, dump_args, s1_dir: str) -> dict:
+    """The dump's pixels on the card (nvJPEG, then Pillow's bilinear
+    arithmetic) against the source frames through the same resize on the
+    CPU; and one dump batch's CAMs on the card against the port's CPU run
+    on the same pixels and weights."""
+    from tcam_wsol_video_tpu_torch.cli import dump_cams as cli_dump
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    from tcam_wsol_video_tpu_torch.data.transforms import \
+        pil_bilinear_resize
+
+    synth = data["synth"]
+    crop = dump_args.crop_size
+    fids = list(synth["frames"])
+    card = nvjpeg_loader.load_resized_u8(
+        [os.path.join(synth["data_root"], f) for f in fids], (crop, crop))
+    src = pil_bilinear_resize(torch.from_numpy(np.stack(
+        [synth["frames"][f] for f in fids])), (crop, crop))
+    errs = (card.cpu().double() - src.double()).abs().mean(
+        dim=(1, 2, 3)).tolist()
+    print(f"[path E dump] pixel route of {len(errs)} frames ({crop} x {crop}"
+          f", Pillow's bilinear): mean |card - source| median "
+          f"{statistics.median(errs):.3f}, max {max(errs):.3f} levels (tol "
+          f"{JPEG_MEAN_ABS_TOL})", flush=True)
+    check(max(errs) <= JPEG_MEAN_ABS_TOL, f"path E: the dump's pixel route "
+          f"is {max(errs):.3f} levels off the source")
+
+    data_root, frames = cli_dump.train_frames(dump_args)
+    chunk = frames[:32]
+    pixels = cli_dump.load_pixels([os.path.join(data_root, f)
+                                   for f, _ in chunk], crop,
+                                  torch.device("cuda"))
+    labels = torch.tensor([lab for _, lab in chunk])
+    cams = {}
+    for dev in ("cuda", "cpu"):
+        model, _, _ = cli_dump.load_classifier(dump_args, s1_dir,
+                                               torch.device(dev))
+        step = cli_dump.make_dump_step(model, dump_args, 28)
+        t0 = time.perf_counter()
+        cams[dev] = step(pixels.to(dev), labels.to(dev)).cpu()
+        print(f"[path E dump] one batch of {len(chunk)} CAMs on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del model
+    err = (cams["cuda"] - cams["cpu"]).abs().max().item()
+    print(f"[path E dump] CAMs card (TF32 convolutions) vs CPU (fp32): "
+          f"max |difference| {err:.3e} (tol {CAM_TF32_ATOL})", flush=True)
+    check(err <= CAM_TF32_ATOL, f"path E: the card's CAMs are {err:.3e} off "
+          "the CPU's")
+    torch.cuda.empty_cache()
+    return {"pixel_route_mean_abs": errs, "cam_card_vs_cpu_max_abs": err,
+            "cam_atol": CAM_TF32_ATOL}
+
+
+def phase_chain(seed: int, data: dict) -> dict:
+    """Path E: the two-stage chain through the CLIs a user runs, with the
+    counts reset just before: stage 1 (STD_CL), dump_cams at its
+    best-localization snapshot, stage 2 (TCAM) over the dumped store from
+    stage 1's best-classification encoder and head, and the standalone
+    evaluate at stage 2's best-localization snapshot on the test split."""
+    from tcam_wsol_video_tpu_torch.cli import dump_cams as cli_dump
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_eval
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.core.config import stage1_cam_recipe
+    from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
+
+    root = data["root"]
+    outd = os.path.join(root, "exps_e")
+    store_dir = os.path.join(root, "cam_store")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_chain = time.perf_counter()
+
+    # stage 1
+    t0 = time.perf_counter()
+    s1 = cli_train.main(path_e_stage1_flags(root, outd))
+    torch.cuda.synchronize()
+    s1_s = time.perf_counter() - t0
+    rep1 = report_trainer("path E stage 1", s1, PATH_E_EPOCHS)
+    print(f"[path E stage 1] cli/train.main {s1_s:.2f} s", flush=True)
+
+    # the handoff
+    dump_flags = common_flags(root) + ["--task", "STD_CL", "--exp_dir",
+                                       s1["outd"], "--out", store_dir]
+    dump = cli_dump.main(dump_flags)
+    torch.cuda.synchronize()
+    store = CamStore(store_dir)
+    th = store.thresholds or {}
+    cams_ok = all(
+        store.load_cam(f).shape == (28, 28)
+        and 0.0 <= store.load_cam(f).min()
+        and store.load_cam(f).max() <= 1.0 for f in th)
+    print(f"[path E dump] {dump['n_frames']} frames of the "
+          f"{constants.BEST_LOC} snapshot (step {dump['step']}) in "
+          f"{dump['seconds']:.2f} s: {dump['frames_per_s']:.1f} frames/s "
+          f"(host: CAMs saved and thresholds {dump['host_s']:.2f} s); "
+          f"{len(th)} thresholds in [{min(th.values()):.4f}, "
+          f"{max(th.values()):.4f}]", flush=True)
+    check(dump["step"] > 0, f"path E: the dump read stage 1's untrained "
+          f"{constants.BEST_LOC} snapshot (step {dump['step']})")
+    check(dump["n_frames"] == len(th) == 640 and cams_ok
+          and all(0.0 <= t <= 1.0 for t in th.values()),
+          f"path E: {len(th)} thresholds for {dump['n_frames']} frames, "
+          f"CAMs 28 x 28 in [0, 1]: {cams_ok}")
+    route = check_dump_route(data, stage1_cam_recipe(
+        crop_size=224, resize_size=256, data_root=root,
+        metadata_root=os.path.join(root, "folds"), seed=seed), s1["outd"])
+
+    # stage 2, from stage 1's best-classification encoder and head; its
+    # own random weights come from another seed, so they equal stage 1's
+    # only if the load took place
+    loaded = {}
+    load = cli_train.load_pretrained_classifier_weights
+    held = (("classification_head", "fc.weight"), ("encoder", "conv1.weight"))
+
+    def weights(model):
+        # copies: the steps update the parameters in place
+        return {(c, n): getattr(model, c).state_dict()[n].to("cpu", copy=True)
+                for c, n in held}
+
+    def spy(args, model):
+        loaded["before"] = weights(model)
+        load(args, model)
+        loaded["after"] = weights(model)
+
+    cli_train.load_pretrained_classifier_weights = spy
+    try:
+        t0 = time.perf_counter()
+        s2 = cli_train.main(path_d_flags(root, store_dir, outd,
+                                         pretrained=s1["outd"],
+                                         seed=SEED + 1))
+        torch.cuda.synchronize()
+        s2_s = time.perf_counter() - t0
+    finally:
+        cli_train.load_pretrained_classifier_weights = load
+    launches = read_counts()
+    cl_step, snap = ckpt.load_best_model(os.path.join(s1["outd"],
+                                                      constants.BEST_CL))
+    want = {(c, n): snap["components"][c][n] for c, n in held}
+    differ = "before" in loaded and not any(
+        torch.equal(loaded["before"][k], v) for k, v in want.items())
+    same = "after" in loaded and all(
+        torch.equal(loaded["after"][k], v) for k, v in want.items())
+    print(f"[path E stage 2] starts from stage 1's {constants.BEST_CL} "
+          f"snapshot (step {cl_step}): "
+          f"{' and '.join(f'{c}.{n}' for c, n in held)} differ from it "
+          f"before the load (seed {SEED + 1}) {differ}, equal it after "
+          f"{same}", flush=True)
+    check(differ and same, "path E: stage 2 did not start from stage 1's "
+          "weights")
+    check(cl_step > 0, f"path E: stage 2 started from stage 1's untrained "
+          f"{constants.BEST_CL} snapshot (step {cl_step})")
+    rep2 = report_trainer("path E stage 2", s2, PATH_D_EPOCHS)
+    k = launches["bilateral_exact"]["kernel"]
+    print(f"[path E launches] bilateral_exact {k} in {rep2['steps']} "
+          f"stage-2 steps; {launches}", flush=True)
+    check(k == rep2["steps"], f"path E: the exact CRF kernel launched {k} "
+          f"times in {rep2['steps']} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path E: a plain version ran")
+    print(f"[path E stage 2] cli/train.main {s2_s:.2f} s", flush=True)
+
+    # standalone evaluation of stage 2's best-localization snapshot
+    t0 = time.perf_counter()
+    ev = cli_eval.main(common_flags(root) + [
+        "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size", "32",
+        "--exp_dir", s2["outd"], "--split", "test"])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    after = read_counts()
+    check(after == launches, f"path E: evaluate launched kernels: {after}")
+    want = rep2["best"]
+    gaps = {s: abs(ev[f"maxboxacc_{s}"] - want[f"maxboxacc_{s}"])
+            for s in (30, 50, 70)}
+    share = 100.0 / 320
+    print(_eval_line("path E evaluate test best_localization",
+                     {**ev, **ev["timing"]})
+          + f"; |evaluate - trainer| at IoU 30/50/70 "
+          + "/".join(f"{g:.4f}" for g in gaps.values())
+          + f" (tol {share:.4f}, one image); cli/evaluate.main "
+          f"{ev_s:.2f} s", flush=True)
+    check(ev["n_images"] == 320 and max(gaps.values()) <= share,
+          f"path E: evaluate is {gaps} off the trainer's test pass")
+    wall_s = time.perf_counter() - t_chain
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[path E] the chain in {wall_s:.2f} s (stage 1 {s1_s:.2f}, dump "
+          f"{dump['seconds']:.2f}, stage 2 {s2_s:.2f}, evaluate "
+          f"{ev_s:.2f}), peak {peak:.2f} GiB", flush=True)
+    return {"wall_s": wall_s, "stage1_s": s1_s, "stage2_s": s2_s,
+            "evaluate_s": ev_s, "launches": launches,
+            "stage1": {"train": s1["records"]["train"],
+                       "eval": s1["records"]["eval"],
+                       "test_best_loc": rep1["best"]},
+            "dump": {k: v for k, v in dump.items() if k != "store"},
+            "dump_route": route,
+            "stage2": {"steps": rep2["steps"],
+                       "train": s2["records"]["train"],
+                       "eval": s2["records"]["eval"],
+                       "test_best_loc": want},
+            "evaluate": dict(ev),
+            "evaluate_gap": gaps, "peak_mem_gib": peak}
 
 
 # ------------------------------------------------------------ TF32 vs fp32
@@ -1200,7 +1466,10 @@ def main(argv=None) -> int:
     result["crf_parity"] = phase_crf_parity(SEED)
     result["production"] = phase_production(SEED, STEPS, a.profile)
     result["crf_landmark_parity"] = phase_landmark_parity(SEED)
-    result["trainer"] = phase_trainer(SEED)
+    data = make_trainer_set(SEED)
+    result["trainer"] = phase_trainer(SEED, data)
+    result["chain"] = phase_chain(SEED, data)
+    shutil.rmtree(data["root"])
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
     # the single-image function (the B = 1 case), off the main path
@@ -1223,8 +1492,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": src + "bilateral.cu",
         "replaces": "tcam_wsol_video_tpu/ops/pallas/bilateral.py:183",
-        # path D, this slice's main path; path A's count beside it
-        "launches": result["trainer"]["launches"]["bilateral_exact"][
+        # path E, this slice's main path (its stage-2 steps); paths D and
+        # A beside it
+        "launches": result["chain"]["launches"]["bilateral_exact"][
+            "kernel"],
+        "launches_path_d": result["trainer"]["launches"]["bilateral_exact"][
             "kernel"],
         "launches_path_a": result["main_path"]["launches"]["kernel"],
         "max_abs_err": max_err("bilateral_exact"),
@@ -1272,9 +1544,25 @@ def main(argv=None) -> int:
           + " ms, data wait " + "/".join(
               f"{r['data_wait_ms_per_step']:.2f}" for r in tr["train"])
           + f" ms/step, test MaxBoxAcc at best localization "
-          f"{tr['test_best_loc']['maxboxacc_50']:.2f} (IoU 50); "
-          f"cli/train.main {tr['wall_s']:.1f} s; total "
-          f"{result['seconds']:.1f} s", flush=True)
+          f"{tr['test_best_loc']['maxboxacc_50']:.2f} (IoU 50, stand-in "
+          f"CAMs); cli/train.main {tr['wall_s']:.1f} s", flush=True)
+    ch = result["chain"]
+
+    def per_epoch(train, key):
+        return "/".join(f"{r[key]:.2f}" for r in train)
+    print(f"[summary] path E: stage 1 median step "
+          f"{per_epoch(ch['stage1']['train'], 'median_step_ms')} ms, data "
+          f"wait {per_epoch(ch['stage1']['train'], 'data_wait_ms_per_step')}"
+          f" ms/step, test MaxBoxAcc@50 "
+          f"{ch['stage1']['test_best_loc']['maxboxacc_50']:.2f}; dump "
+          f"{ch['dump']['frames_per_s']:.1f} frames/s; stage 2 median step "
+          f"{per_epoch(ch['stage2']['train'], 'median_step_ms')} ms, data "
+          f"wait {per_epoch(ch['stage2']['train'], 'data_wait_ms_per_step')}"
+          f" ms/step, test MaxBoxAcc@50 "
+          f"{ch['stage2']['test_best_loc']['maxboxacc_50']:.2f} (evaluate "
+          f"{ch['evaluate']['maxboxacc_50']:.2f}); the chain "
+          f"{ch['wall_s']:.1f} s; total {result['seconds']:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

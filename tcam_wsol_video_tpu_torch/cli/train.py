@@ -1,16 +1,21 @@
-"""Training entry point of the TCAM task (port of cli/train.py).
+"""Training entry point of the STD_CL and TCAM tasks (port of
+cli/train.py).
 
+    python -m tcam_wsol_video_tpu_torch.cli.train --task STD_CL \\
+        --data_root <root> --metadata_root <folds> ... [--device cpu]
     python -m tcam_wsol_video_tpu_torch.cli.train --task TCAM \\
         --arch UnetTCAM --data_root <root> --metadata_root <folds> \\
-        --std_cams_folder <CAM store> --sl_tc true --crf_tc true ... \\
-        [--device cpu]
+        --std_cams_folder <CAM store> --folder_pre_trained_cl <stage 1> \\
+        --sl_tc true --crf_tc true ... [--device cpu]
 
-Flags are the JAX CLI's (core/config.py).  It builds the data layer over
-the CAM store, the model (random weights from --seed, then the encoder
-and classifier of --folder_pre_trained_cl when given: a snapshot folder
-written by this package), and runs Trainer.fit: validation, the epochs,
-model selection and the test split at the best snapshots.  It runs on the
-card unless --device cpu is given; without CUDA it raises.
+Flags are the JAX CLI's (core/config.py).  It builds the data layer (over
+the CAM store for TCAM; STD_CL reads no store), the model (random weights
+from --seed, then the encoder and classifier of --folder_pre_trained_cl
+when given: a stage-1 experiment folder written by this package, whose
+tcam_pretrained_cl_ch_pt snapshot is read), and runs Trainer.fit:
+validation, the epochs, model selection and the test split at the best
+snapshots.  It runs on the card unless --device cpu is given; without
+CUDA it raises.
 """
 from __future__ import annotations
 
@@ -34,16 +39,45 @@ from tcam_wsol_video_tpu_torch.engine.trainer import Trainer
 from tcam_wsol_video_tpu_torch.models.factory import create_model_from_args
 
 
-def build_data(args: TCAMConfig, kc: KeyChain, device):
-    """Returns (args with the resolved metadata root, train pipeline,
-    {split: (dataset, pipeline)} for val and test)."""
+def resolve_metadata_root(args: TCAMConfig) -> TCAMConfig:
+    """args with --metadata_root resolved: as given when it is a folder,
+    else <data_root>/<metadata_root>/<dataset> when that is one."""
     meta_root = args.metadata_root
-    data_root = os.path.join(args.data_root, args.dataset)
     if not os.path.isdir(meta_root):
         cand = os.path.join(args.data_root, meta_root, args.dataset)
         if os.path.isdir(cand):
             meta_root = cand
-    args = args.replace(metadata_root=meta_root)
+    return args.replace(metadata_root=meta_root)
+
+
+def device_from(name: str) -> torch.device:
+    """The entry points' --device: the card unless `cpu` is asked for;
+    raises when CUDA is asked for and missing."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to "
+                           "run on the CPU")
+    return device
+
+
+def eval_dataset(args: TCAMConfig, kc: KeyChain, split: str, md=None
+                 ) -> WSOLVideoDataset:
+    """The dataset of `split` (its metadata `md`, else the folds') under
+    the eval transform, without a CAM store."""
+    if md is None:
+        md = load_split_metadata(args.metadata_root, split)
+    return WSOLVideoDataset(
+        md, os.path.join(args.data_root, args.dataset), split, args.dataset,
+        PairedTransform(args.resize_size, args.crop_size, train=False),
+        kc, crop_size=args.crop_size)
+
+
+def build_data(args: TCAMConfig, kc: KeyChain, device):
+    """Returns (args with the resolved metadata root, train pipeline,
+    {split: (dataset, pipeline)} for val and test)."""
+    args = resolve_metadata_root(args)
+    meta_root = args.metadata_root
+    data_root = os.path.join(args.data_root, args.dataset)
     cam_store = (CamStore(args.std_cams_folder) if args.std_cams_folder
                  else None)
 
@@ -66,10 +100,7 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
         if split == constants.VALIDSET and args.num_val_sample_per_class:
             md = subsample_per_class(md, args.num_val_sample_per_class,
                                      kc.numpy_rng("val_subsample"))
-        ds = WSOLVideoDataset(
-            md, data_root, split, args.dataset,
-            PairedTransform(args.resize_size, args.crop_size, train=False),
-            kc, crop_size=args.crop_size)
+        ds = eval_dataset(args, kc, split, md)
         eval_pipes[split] = (ds, DataPipeline(ds, args.eval_batch_size, kc,
                                               shuffle=False, device=device))
     return args, train_pipe, eval_pipes
@@ -99,10 +130,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
     args, ns = parse_args(argv, extra)
-    device = torch.device(ns.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to "
-                           "train on the CPU")
+    device = device_from(ns.device)
     kc = KeyChain(args.seed)
     args, train_pipe, eval_pipes = build_data(args, kc, device)
     with torch.random.fork_rng(devices=[]):

@@ -5,9 +5,10 @@ Names and defaults are those of the JAX package's core/hparams.py
 package reads the same in the other, and `parse_args` takes the same
 `--key value` flags (booleans as true/false, lists as [a, b]).  The
 full hparams port (--config yaml files, every task's keys) is later work.
-`stage2_tcam_recipe` gives the stage-2 step flags of the end-to-end
-script, `stage2_tcam_production` those of the production stage-2 script
-(landmark CRF).
+`stage1_cam_recipe` gives the stage-1 classifier of
+config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the stage-2 step
+flags of the end-to-end script, `stage2_tcam_production` those of the
+production stage-2 script (landmark CRF).
 """
 from __future__ import annotations
 
@@ -65,7 +66,10 @@ class TCAMConfig:
     spatial_pooling: str = constants.WGAP
     freeze_cl: bool = False
     folder_pre_trained_cl: str = ""
+    # stage-1 snapshots: the classifier that stage 2 starts from, and the
+    # one whose CAMs seed it
     tcam_pretrained_cl_ch_pt: str = constants.BEST_CL
+    tcam_pretrained_seeder_ch_pt: str = constants.BEST_LOC
     seg_ignore_idx: int = constants.SEG_IGNORE_IDX
     # optimizer
     opt_name: str = "sgd"
@@ -162,6 +166,17 @@ class TCAMConfig:
         return dataclasses.replace(self, **kw)
 
 
+def stage1_cam_recipe(**overrides) -> TCAMConfig:
+    """config_yaml/ytov1_stage1_cam.yaml: the STD_CL classifier (ResNet-50,
+    WGAP head, CAM method), SGD at lr 0.001, batch 32, 100 epochs."""
+    cfg = TCAMConfig(
+        task=constants.STD_CL, arch=constants.STDCLASSIFIER,
+        encoder_name=constants.RESNET50, method=constants.METHOD_CAM,
+        spatial_pooling=constants.WGAP, opt_name="sgd", lr=0.001,
+        batch_size=32, max_epochs=100)
+    return cfg.replace(**overrides)
+
+
 def stage2_tcam_recipe(**overrides) -> TCAMConfig:
     """Stage-2 step flags of cmds/e2e_synth224_tpu.sh with the batch size
     and freeze_cl of config_yaml/ytov1_stage2_tcam.yaml (the data-layer and
@@ -220,7 +235,8 @@ def _coerce(default, text: str):
 
 
 def experiment_tag(args) -> str:
-    """The experiment folder's name, as the JAX package builds it."""
+    """The experiment folder's name, as the JAX package builds it.  The
+    task is not part of it: both stages of a recipe share one tag."""
     return (f"{args.dataset}-{args.encoder_name}-{args.method}-"
             f"{args.spatial_pooling}-cp_{args.eval_checkpoint_type}-"
             f"boxv2_{args.box_v2_metric}")
@@ -230,6 +246,19 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
     """Cross-key checks of the ported tasks, and the clip batch split."""
     if args.dataset not in constants.NUMBER_CLASSES:
         raise ValueError(f"dataset {args.dataset!r} is not ported")
+    if args.spatial_pooling not in constants.SPATIAL_POOLINGS:
+        raise ValueError(f"spatial_pooling {args.spatial_pooling!r}")
+    if args.task == constants.STD_CL:
+        if args.arch != constants.STDCLASSIFIER:
+            raise ValueError("STD_CL trains the STDClassifier arch")
+        # the method fixes the pooling head (METHOD_2_POOLINGHEAD); only
+        # the CAM method and its WGAP head are ported
+        if args.method != constants.METHOD_CAM:
+            raise NotImplementedError(f"CAM method {args.method} is not "
+                                      "ported")
+        if args.spatial_pooling != constants.WGAP:
+            raise NotImplementedError(f"pooling head {args.spatial_pooling}"
+                                      " is not ported")
     if args.task == constants.TCAM:
         if args.arch != constants.UNETTCAM:
             raise ValueError("TCAM trains the UnetTCAM arch")

@@ -10,11 +10,17 @@ TCAM = "TCAM"
 STDCLASSIFIER = "STDClassifier"
 UNETTCAM = "UnetTCAM"
 
-# CAM method of the stage-1 classifier (part of the experiment tag)
+# CAM method of the stage-1 classifier (part of the experiment tag); the
+# only method ported
 METHOD_CAM = "CAM"
 
-# pooling head of the recipe
+# pooling heads (WGAP, the CAM method's, is the only one built)
+GAP = "GAP"
 WGAP = "WGAP"
+MAX_POOL = "MaxPool"
+LSE_POOL = "LogSumExpPool"
+WILDCAT = "WildCatCLHead"
+SPATIAL_POOLINGS = (GAP, WGAP, MAX_POOL, LSE_POOL, WILDCAT)
 
 # encoders
 RESNET50 = "resnet50"

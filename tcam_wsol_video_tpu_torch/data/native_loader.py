@@ -1,7 +1,8 @@
 """ctypes binding of native/fastloader.cpp, the host image route: libjpeg
 decode, half-pixel bilinear resize, crop, flip and ImageNet normalization
 of a batch in one OpenMP call (port of data/native_loader.py, signatures
-of its load_batch).
+of its load_batch); and a JPEG file's size from its header (the CAM
+dump's host route decodes each frame at its own size).
 
 The library is built from the checkout's native/fastloader.cpp with the
 JAX binding's g++ flags (core/nativebuild.py), so both packages decode the
@@ -75,3 +76,33 @@ def decode_u8(paths: List[str], height: int, width: int) -> np.ndarray:
     if rc != 0:
         raise IOError(f"failed to decode {paths[rc - 1]}")
     return buf
+
+
+# start-of-frame markers that carry the frame's size (not DHT C4, JPG C8
+# or DAC CC, which share the range)
+_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_hw(path: str) -> Tuple[int, int]:
+    """(height, width) of a JPEG file, from its start-of-frame segment."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"\xff\xd8":
+        raise IOError(f"{path} is not a JPEG file")
+    i = 2
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            raise IOError(f"{path}: bad JPEG marker at byte {i}")
+        marker = data[i + 1]
+        if marker == 0xFF:                   # fill byte
+            i += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:  # no length field
+            i += 2
+            continue
+        if marker in _SOF:
+            return (int.from_bytes(data[i + 5:i + 7], "big"),
+                    int.from_bytes(data[i + 7:i + 9], "big"))
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    raise IOError(f"{path}: no start-of-frame segment")
+

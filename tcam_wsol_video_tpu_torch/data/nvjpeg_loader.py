@@ -8,7 +8,8 @@ them, the same interpolation order, then crop, flip and (v / 255 - mean) /
 std.  It runs on any device, so the CPU tests hold it against fastloader.
 nvJPEG's decoder is not libjpeg's: its frames differ from the host route's
 by a few levels (chip_smoke.py holds both routes' round trips against the
-source frames).
+source frames).  `load_resized_u8` is the CAM dump's route: whole frames
+resized with Pillow's bilinear arithmetic (data/transforms.py).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.data.transforms import pil_resize_frames
 from tcam_wsol_video_tpu_torch.ops.cuda import build
 
 _VP = ctypes.c_void_p
@@ -159,3 +161,18 @@ def load_batch(paths: List[str], resize: int, crop: int,
     norm.record_stream(main)
     raw.record_stream(main)
     return norm, raw
+
+
+def load_resized_u8(paths: List[str], size: Tuple[int, int],
+                    device="cuda") -> torch.Tensor:
+    """Decode each file on the card and resize the whole frame to `size`
+    as Pillow's BILINEAR does: (N, h, w, 3) uint8 on `device`.  Decoded
+    and resized on the side stream of load_batch; the caller's stream
+    waits for it."""
+    device = _cuda(device)
+    main = torch.cuda.current_stream(device)
+    with torch.cuda.stream(_side_stream(device)):
+        out = pil_resize_frames([decode(p, device) for p in paths], size)
+    main.wait_stream(_side_stream(device))
+    out.record_stream(main)
+    return out

@@ -1,18 +1,29 @@
 """Paired geometry of (image, raw image, stored CAM) (port of
-data/transforms.py).
+data/transforms.py), and the CAM dump's pixel route.
 
 Train: resize to (resize, resize), random crop, random horizontal flip;
 eval: resize to (crop, crop).  The image loaders apply it to the pixels
 (data/native_loader.py, data/nvjpeg_loader.py) and the dataset to the CAM
 with the same draws (WSOLVideoDataset.cam_roi_for).  `PairedTransform`
 holds the geometry; the draws come from the pipeline's KeyChain streams.
+
+The CAM dump resizes whole frames as the JAX dump does, with Pillow's
+`Image.resize(..., BILINEAR)`: `pil_bilinear_resize` repeats Pillow's
+arithmetic without Pillow (the triangle filter, whose support widens with
+the downscale factor; coefficients in double, then 22-bit fixed point; a
+horizontal then a vertical integer pass, each rounded and clipped to
+uint8).  It is integer arithmetic on tensors, so it gives the same bits on
+the CPU and on the card.
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tcam_wsol_video_tpu_torch.core.constants import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
@@ -39,3 +50,94 @@ def normalize_imagenet(img: np.ndarray) -> np.ndarray:
     mean = np.asarray(IMAGENET_MEAN, np.float32)
     std = np.asarray(IMAGENET_STD, np.float32)
     return (img - mean) / std
+
+
+def normalize_u8(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 -> normalized float32, in the JAX dump's order:
+    v / 255, then (v - mean) / std."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                        device=img.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
+    return (img.float() / 255.0 - mean) / std
+
+
+_PIL_BITS = 22          # Pillow's PRECISION_BITS for 8-bit images
+
+
+@functools.lru_cache(maxsize=32)
+def _pil_bilinear_taps(n_in: int, n_out: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's precompute_coeffs and normalize_coeffs_8bpc for the
+    triangle filter along one axis: (idx, weight), each (n_out, ksize),
+    the source index of every tap and its fixed-point weight.  Taps past
+    a window's end weigh 0 (their index is clamped into range)."""
+    scale = float(n_in) / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    idx = np.zeros((n_out, ksize), np.int64)
+    weight = np.zeros((n_out, ksize), np.int32)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        k = []
+        for x in range(xmax):
+            t = abs((x + xmin - center + 0.5) * ss)
+            k.append(1.0 - t if t < 1.0 else 0.0)
+        ww = 0.0
+        for v in k:
+            ww += v
+        for x, v in enumerate(k):
+            if ww != 0.0:
+                v /= ww
+            weight[xx, x] = (int(-0.5 + v * (1 << _PIL_BITS)) if v < 0
+                             else int(0.5 + v * (1 << _PIL_BITS)))
+        idx[xx] = np.minimum(xmin + np.arange(ksize), n_in - 1)
+    return idx, weight
+
+
+def _pil_pass(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
+    """One integer pass of Pillow's resampler along `axis` of an int32
+    tensor of levels in [0, 255]."""
+    idx, weight = _pil_bilinear_taps(x.shape[axis], n_out)
+    idx = torch.from_numpy(idx).to(x.device)
+    weight = torch.from_numpy(weight).to(x.device)
+    shape = [1] * x.dim()
+    shape[axis] = n_out
+    out_shape = list(x.shape)
+    out_shape[axis] = n_out
+    acc = torch.full(out_shape, 1 << (_PIL_BITS - 1), dtype=torch.int32,
+                     device=x.device)
+    for t in range(idx.shape[1]):
+        acc += x.index_select(axis, idx[:, t]) * weight[:, t].view(shape)
+    return (acc >> _PIL_BITS).clamp_(0, 255)
+
+
+def pil_bilinear_resize(frames: torch.Tensor, size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """Pillow's Image.resize((w, h), BILINEAR) of each (h0, w0, 3) uint8
+    frame of `frames` (N, h0, w0, 3) -> (N, h, w, 3) uint8, on the frames'
+    device.  An axis whose size does not change is left as it is."""
+    h, w = int(size[0]), int(size[1])
+    x = frames.to(torch.int32)
+    if x.shape[2] != w:
+        x = _pil_pass(x, w, 2)
+    if x.shape[1] != h:
+        x = _pil_pass(x, h, 1)
+    return x.to(torch.uint8)
+
+
+def pil_resize_frames(frames: Sequence[torch.Tensor], size: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """pil_bilinear_resize of (h_i, w_i, 3) uint8 frames of any sizes,
+    frames of one size together -> (N, h, w, 3) uint8 in input order."""
+    groups: dict = {}
+    for i, f in enumerate(frames):
+        groups.setdefault(tuple(f.shape), []).append(i)
+    out = frames[0].new_empty((len(frames), int(size[0]), int(size[1]), 3))
+    for ids in groups.values():
+        out[ids] = pil_bilinear_resize(torch.stack([frames[i] for i in ids]),
+                                       size)
+    return out

@@ -1,10 +1,11 @@
 """Localization evaluation over a split (port of engine/evaluator.py
 CamEvaluator, host-sweep branch).
 
-Each batch runs the eval step on the pipeline's device; the CAMs come
-back to the host, where the exact all-threshold box sweep
-(metrics/native_sweep) scores every valid image against its GT boxes and
-BoxEvaluator counts MaxBoxAcc at each IoU threshold.  Classification
+Each batch runs the eval step on the pipeline's device (for STD_CL the
+CAM of each image's label class); the CAMs come back to the host, where
+the exact all-threshold box sweep (metrics/native_sweep) scores every
+valid image against its GT boxes and BoxEvaluator counts MaxBoxAcc at
+each IoU threshold.  Classification
 counts the top-1 prediction of every valid image.  Validation above 1000
 samples sweeps the coarse tau grid.
 """
@@ -77,7 +78,8 @@ class CamEvaluator:
         for batch in self.pipe.epoch(0):
             t0 = time.perf_counter()
             cams, logits = self.eval_step(
-                batch["image"], batch["raw_img"] if use_raw else None)
+                batch["image"], batch["raw_img"] if use_raw else None,
+                targets=batch["label"])
             cams_np = cams.float().cpu().numpy()
             logits_np = logits.float().cpu().numpy()
             forward_ms.append((time.perf_counter() - t0) * 1e3)

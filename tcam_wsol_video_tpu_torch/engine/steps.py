@@ -1,11 +1,12 @@
-"""Train / eval steps of the TCAM task (port of engine/steps.py, TCAM
-branches of make_train_step and make_cam_eval_step).
+"""Train / eval steps of the STD_CL and TCAM tasks (port of
+engine/steps.py: their branches of make_train_step and
+make_cam_eval_step, and make_classifier_cam_fn).
 
 Batches are dicts of tensors on the step's device in the JAX layout:
-image (B, H, W, 3) normalized, label (B,), raw_img (B, H, W, 3) in
-[0, 255], std_cam (B, H, W), roi (B, H, W); optional valid (B,),
-msk_bbox (B, H, W), fg_size (B,), seq_iter (B,) and frm_iter (B,) for
-the losses that read them.
+image (B, H, W, 3) normalized, label (B,); for TCAM also raw_img
+(B, H, W, 3) in [0, 255], std_cam (B, H, W), roi (B, H, W); optional
+valid (B,), msk_bbox (B, H, W), fg_size (B,), seq_iter (B,) and
+frm_iter (B,) for the losses that read them.
 """
 from __future__ import annotations
 
@@ -29,11 +30,12 @@ def make_train_step(master_loss: MasterLoss, args,
     (model parameters, BN statistics, optimizer, step).
 
     gumbel (B, 2, H*W) injects the seeder's fg/bg Gumbel noise; otherwise
-    it is drawn from `generator`."""
-    if args.task != constants.TCAM:
-        raise NotImplementedError(f"only the TCAM step is ported "
-                                  f"(got {args.task})")
-    needs_seeds = bool(args.sl_tc)
+    it is drawn from `generator`.  STD_CL takes the CE of the logits and
+    draws no seeds (seed_weighted, generator and gumbel are unused)."""
+    if args.task not in (constants.STD_CL, constants.TCAM):
+        raise NotImplementedError(f"the {args.task} step is not ported")
+    std_cl = args.task == constants.STD_CL
+    needs_seeds = not std_cl and bool(args.sl_tc)
     if needs_seeds and seeder_cfg is None:
         raise ValueError("sl_tc needs a seeder config")
 
@@ -55,12 +57,16 @@ def make_train_step(master_loss: MasterLoss, args,
         model.train()
         out = model(batch["image"])
         logits = out["cl_logits"]
-        inputs = LossInputs(epoch=state.epoch, fcams=out["fcams"],
-                            raw_img=batch["raw_img"], seeds=seeds,
-                            seq_iter=batch.get("seq_iter"),
-                            frm_iter=batch.get("frm_iter"),
-                            fg_size=batch.get("fg_size"),
-                            msk_bbox=batch.get("msk_bbox"))
+        if std_cl:
+            inputs = LossInputs(epoch=state.epoch, cl_logits=logits,
+                                glabel=batch["label"])
+        else:
+            inputs = LossInputs(epoch=state.epoch, fcams=out["fcams"],
+                                raw_img=batch["raw_img"], seeds=seeds,
+                                seq_iter=batch.get("seq_iter"),
+                                frm_iter=batch.get("frm_iter"),
+                                fg_size=batch.get("fg_size"),
+                                msk_bbox=batch.get("msk_bbox"))
         total, holder = master_loss.compute(inputs, state.elb_t, switches)
 
         opt.zero_grad(set_to_none=False)
@@ -82,24 +88,41 @@ def make_train_step(master_loss: MasterLoss, args,
     return train_step
 
 
+def _classifier_cam(out: dict, model, targets: torch.Tensor,
+                    args) -> torch.Tensor:
+    """The CAM method's map of class `targets` from a STDClassifier's
+    forward output: the fc-weight CAM on the last feature (B, h, w)."""
+    if args.method != constants.METHOD_CAM:
+        raise NotImplementedError(f"CAM method {args.method} is not ported")
+    return ex.cam_fc_weights(out["features"][-1],
+                             model.classification_head.fc.weight, targets)
+
+
 def make_cam_eval_step(model, args):
-    """Returns eval_step(images, raw_images=None) -> (cams (B, crop, crop)
-    in [0, 1], cl_logits) for the TCAM task: the softmax foreground of the
-    decoder output, nan-guarded, resized to the crop and clipped.  With
-    args.crf_post_process and raw_images (B, crop, crop, 3) in [0, 255],
-    the CAM is then refined by crf_pp_iters mean-field iterations."""
-    if args.task not in (constants.F_CL, constants.TCAM):
-        raise NotImplementedError(f"only the TCAM eval step is ported "
-                                  f"(got {args.task})")
+    """Returns eval_step(images, raw_images=None, targets=None) ->
+    (cams (B, crop, crop) in [0, 1], cl_logits).  TCAM: the softmax
+    foreground of the decoder output; STD_CL: the CAM method's map of
+    class `targets` (the labels).  Then nan-guarded, resized to the crop
+    (align_corners=False) and clipped.  With args.crf_post_process and
+    raw_images (B, crop, crop, 3) in [0, 255], the CAM is then refined by
+    crf_pp_iters mean-field iterations."""
+    if args.task not in (constants.STD_CL, constants.TCAM):
+        raise NotImplementedError(f"the {args.task} eval step is not "
+                                  "ported")
+    std_cl = args.task == constants.STD_CL
     crop = args.crop_size
     use_crf_pp = bool(args.crf_post_process)
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor,
-                  raw_images: Optional[torch.Tensor] = None):
+                  raw_images: Optional[torch.Tensor] = None,
+                  targets: Optional[torch.Tensor] = None):
         model.eval()
         out = model(images)
-        cam = ex.seg_cam(out["fcams"])
+        if std_cl:
+            cam = _classifier_cam(out, model, targets, args)
+        else:
+            cam = ex.seg_cam(out["fcams"])
         cam = torch.nan_to_num(cam.float(), nan=0.0, posinf=1.0, neginf=0.0)
         if tuple(cam.shape[-2:]) != (crop, crop):
             cam = resize_bilinear(cam[..., None], (crop, crop),
@@ -113,3 +136,18 @@ def make_cam_eval_step(model, args):
         return cam, out["cl_logits"]
 
     return eval_step
+
+
+def make_classifier_cam_fn(classifier_model, args):
+    """Returns cam_fn(images, targets) -> (B, h, w) CAMs of the frozen
+    stage-1 classifier at its last feature's resolution, nan-guarded (the
+    CAM store's dump, and seeds recomputed without a store)."""
+
+    @torch.no_grad()
+    def cam_fn(images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        classifier_model.eval()
+        out = classifier_model(images)
+        cam = _classifier_cam(out, classifier_model, targets, args)
+        return torch.nan_to_num(cam, nan=0.0, posinf=1.0, neginf=0.0)
+
+    return cam_fn

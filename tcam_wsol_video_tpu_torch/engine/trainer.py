@@ -1,11 +1,13 @@
-"""Training engine of the TCAM task: epoch loop, evaluation, model
-selection and checkpoints (port of engine/trainer.py, TCAM path).
+"""Training engine of the STD_CL and TCAM tasks: epoch loop, evaluation,
+model selection and checkpoints (port of engine/trainer.py, the paths of
+the two tasks).
 
-Each epoch: DecayTemp takes the epoch before the batches (it sets the
-dataset's CAM heat and whether seeds are weighted), the loss switches and
-the learning rate are those of the epoch; the train step runs once per
-pipeline batch; after the last batch the ELB t anneals, and the epoch's
-checkpoint holds the annealed t.  Validation after each epoch updates the
+Each epoch: for TCAM, DecayTemp takes the epoch before the batches (it
+sets the dataset's CAM heat and whether seeds are weighted); the loss
+switches and the learning rate are those of the epoch; the train step
+runs once per pipeline batch; after the last batch the ELB t anneals (for
+STD_CL too, as in the JAX trainer), and the epoch's checkpoint holds the
+annealed t.  Validation after each epoch updates the
 best-localization and best-classification snapshots; `fit` ends with a
 test evaluation at each.
 
@@ -35,7 +37,7 @@ from tcam_wsol_video_tpu_torch.engine.lr import build_lr_fn
 from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer, set_lr
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
-from tcam_wsol_video_tpu_torch.losses.build import get_loss_tcam
+from tcam_wsol_video_tpu_torch.losses.build import get_loss
 from tcam_wsol_video_tpu_torch.losses.elb import update_t
 
 
@@ -93,9 +95,9 @@ class Trainer:
     def __init__(self, args, model, train_pipe, eval_pipes: Dict[str, tuple],
                  keychain: Optional[KeyChain] = None, device="cuda"):
         """eval_pipes: {split: (dataset, pipeline)}."""
-        if args.task != constants.TCAM:
-            raise NotImplementedError(f"only the TCAM trainer is ported "
-                                      f"(got {args.task})")
+        if args.task not in (constants.STD_CL, constants.TCAM):
+            raise NotImplementedError(f"the {args.task} trainer is not "
+                                      "ported")
         self.args = args
         self.model = model
         self.device = torch.device(device)
@@ -103,20 +105,24 @@ class Trainer:
         self.eval_pipes = eval_pipes
         self.kc = keychain or KeyChain(args.seed)
 
-        self.master_loss = get_loss_tcam(args)
+        self.master_loss = get_loss(args)
         self.lr_fn = build_lr_fn(args)
         optimizer = build_optimizer(args, model, self.lr_fn(0))
         self.state = TrainState(model, optimizer, elb_t=args.elb_init_t)
-        self.train_step = make_train_step(self.master_loss, args,
-                                          seeder_cfg_from_args(args))
-        self.decay_temp = DecayTemp(
-            sl_tc_knn_t=args.sl_tc_knn_t, sl_tc_min_t=args.sl_tc_min_t,
-            sl_tc_knn=args.sl_tc_knn, sl_tc_knn_mode=args.sl_tc_knn_mode,
-            sl_tc_knn_epoch_switch_uniform=(
-                args.sl_tc_knn_epoch_switch_uniform),
-            sl_tc_seed_tech=args.sl_tc_seed_tech)
-        if train_pipe.ds.decay_temp is None:
-            train_pipe.ds.decay_temp = self.decay_temp
+        tcam = args.task == constants.TCAM
+        self.train_step = make_train_step(
+            self.master_loss, args,
+            seeder_cfg_from_args(args) if tcam else None)
+        self.decay_temp: Optional[DecayTemp] = None
+        if tcam:
+            self.decay_temp = DecayTemp(
+                sl_tc_knn_t=args.sl_tc_knn_t, sl_tc_min_t=args.sl_tc_min_t,
+                sl_tc_knn=args.sl_tc_knn, sl_tc_knn_mode=args.sl_tc_knn_mode,
+                sl_tc_knn_epoch_switch_uniform=(
+                    args.sl_tc_knn_epoch_switch_uniform),
+                sl_tc_seed_tech=args.sl_tc_seed_tech)
+            if train_pipe.ds.decay_temp is None:
+                train_pipe.ds.decay_temp = self.decay_temp
 
         self.meters = {
             "val_localization": PerformanceMeter(True),
@@ -141,8 +147,11 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         args = self.args
-        self.decay_temp.set_epoch(epoch)
-        seed_weighted = self.decay_temp.seed_tech == constants.SEED_WEIGHTED
+        seed_weighted = False
+        if self.decay_temp is not None:
+            self.decay_temp.set_epoch(epoch)
+            seed_weighted = (self.decay_temp.seed_tech
+                             == constants.SEED_WEIGHTED)
         switches = self.master_loss.switches(epoch)
         self.state.epoch = epoch
         set_lr(self.state.optimizer, self.lr_fn(epoch))
@@ -200,7 +209,9 @@ class Trainer:
             **{f"data_{k}_per_step": float(np.mean(v)) if v else 0.0
                for k, v in self.train_pipe.timing.items()},
             "elb_t": self.state.elb_t, "lr": self.lr_fn(epoch),
-            "heat_t": self.decay_temp.t, "seed_weighted": seed_weighted,
+            "heat_t": (self.decay_temp.t if self.decay_temp is not None
+                       else 0.0),
+            "seed_weighted": seed_weighted,
         }
         self.meters["train_loss"].update(out["loss"], epoch)
         self.meters["train_classification"].update(out["classification"],

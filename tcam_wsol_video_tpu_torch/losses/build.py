@@ -1,13 +1,29 @@
-"""MasterLoss assembly for TCAM (port of losses/build.get_loss_tcam): each
-flag adds its elementary loss with its lambda, epoch window and options.
-Image reconstruction (im_rec) needs the reconstruction decoder, which is
-not ported."""
+"""MasterLoss assembly per task (port of losses/build.py): STD_CL is the
+classification CE; for TCAM each flag adds its elementary loss with its
+lambda, epoch window and options.  Image reconstruction (im_rec) needs
+the reconstruction decoder, which is not ported."""
 from __future__ import annotations
 
+from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.losses import tcam as tcam_losses
 from tcam_wsol_video_tpu_torch.losses.core import MasterLoss
+from tcam_wsol_video_tpu_torch.losses.std import ClLoss
 
 _NOT_PORTED = ("im_rec",)
+
+
+def get_loss(args) -> MasterLoss:
+    if args.task == constants.STD_CL:
+        return get_loss_std_cl(args)
+    if args.task == constants.TCAM:
+        return get_loss_tcam(args)
+    raise NotImplementedError(f"the losses of task {args.task} are not "
+                              "ported")
+
+
+def get_loss_std_cl(args) -> MasterLoss:
+    return MasterLoss([ClLoss(lambda_=1.0,
+                              seg_ignore_idx=args.seg_ignore_idx)])
 
 
 def get_loss_tcam(args) -> MasterLoss:

@@ -17,6 +17,8 @@ class LossInputs:
     to losses not ported yet); NHWC layout."""
     epoch: int = 0
     fcams: Optional[Tensor] = None           # (B, H, W, 2) decoder logits
+    cl_logits: Optional[Tensor] = None       # (B, K) classifier logits
+    glabel: Optional[Tensor] = None          # (B,) int class labels
     raw_img: Optional[Tensor] = None         # (B, H, W, 3) raw [0, 255]
     seeds: Optional[Tensor] = None           # (B, H, W) int {1, 0, ignore}
     seq_iter: Optional[Tensor] = None        # (B,) clip/video id

@@ -1,0 +1,38 @@
+"""STDClassifier, the stage-1 model of task STD_CL (port of
+models/classifier.py), NCHW inside.
+
+Encoder + pooling head on the last feature.  forward takes NHWC images
+and returns cl_logits (B, K), cams_head (None for WGAP, which builds no
+maps) and the encoder features (NCHW).  The submodules are named
+`encoder` and `classification_head` as in UnetTCAM, so stage 2 loads
+them from a stage-1 snapshot, and models/transplant.py maps the flax tree
+onto them by name.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from tcam_wsol_video_tpu_torch.models.poolings import build_pooling_head
+
+
+class STDClassifier(nn.Module):
+    def __init__(self, encoder: nn.Module, pooling: str, classes: int):
+        super().__init__()
+        self.encoder = encoder
+        self.classification_head = build_pooling_head(
+            pooling, encoder.out_channels[-1], classes)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        features = self.encoder(x.permute(0, 3, 1, 2))
+        cl_logits, cams_head = self.classification_head(features[-1])
+        return {"cl_logits": cl_logits, "cams_head": cams_head,
+                "features": features}
+
+    def head_from_features(self, feat: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The pooling head alone on a (B, C, h, w) feature map (where the
+        gradient CAM methods differentiate)."""
+        return self.classification_head(feat)

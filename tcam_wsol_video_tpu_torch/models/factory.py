@@ -1,9 +1,12 @@
-"""Model factory (port of models/factory.py): TCAM on ResNet-50."""
+"""Model factory (port of models/factory.py): STDClassifier (STD_CL) and
+UnetTCAM (TCAM) on ResNet-50."""
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.models.classifier import STDClassifier
 from tcam_wsol_video_tpu_torch.models.resnet import resnet50_wsol
 from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
 
@@ -12,16 +15,27 @@ def create_model(task: str, encoder_name: str = constants.RESNET50,
                  num_classes: int = 10,
                  spatial_pooling: str = constants.WGAP,
                  freeze_cl: bool = False,
-                 device="cuda") -> UnetTCAM:
-    if task != constants.TCAM or encoder_name != constants.RESNET50:
+                 device="cuda") -> nn.Module:
+    if encoder_name != constants.RESNET50:
         raise NotImplementedError(
-            f"only TCAM on resnet50 is ported (got {task}/{encoder_name})")
-    model = UnetTCAM(resnet50_wsol(), spatial_pooling, num_classes,
-                     decoder_channels=(256, 128, 64, 32, 16),
-                     seg_h_out_channels=2, freeze_cl=freeze_cl)
+            f"only the resnet50 encoder is ported (got {encoder_name})")
+    if task == constants.STD_CL:
+        model = STDClassifier(resnet50_wsol(), spatial_pooling, num_classes)
+    elif task == constants.TCAM:
+        model = UnetTCAM(resnet50_wsol(), spatial_pooling, num_classes,
+                         decoder_channels=(256, 128, 64, 32, 16),
+                         seg_h_out_channels=2, freeze_cl=freeze_cl)
+    else:
+        raise NotImplementedError(f"task {task} is not ported")
     return model.to(torch.device(device))
 
 
-def create_model_from_args(args, device="cuda") -> UnetTCAM:
-    return create_model(args.task, args.encoder_name, args.num_classes,
-                        args.spatial_pooling, args.freeze_cl, device=device)
+def create_model_from_args(args, override_arch_for_classifier: bool = False,
+                           device="cuda") -> nn.Module:
+    """The model of args.task; override_arch_for_classifier builds the
+    stage-1 STD_CL classifier whatever the task, without freeze_cl."""
+    t = constants.STD_CL if override_arch_for_classifier else args.task
+    return create_model(t, args.encoder_name, args.num_classes,
+                        args.spatial_pooling,
+                        args.freeze_cl and not override_arch_for_classifier,
+                        device=device)

@@ -18,8 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.models.poolings import WGAP
+from tcam_wsol_video_tpu_torch.models.poolings import build_pooling_head
 from tcam_wsol_video_tpu_torch.models.resnet import BatchNorm2d, conv
 from tcam_wsol_video_tpu_torch.ops.interpolate import (
     resize_bilinear, resize_nearest, resize_nearest_then_bilinear)
@@ -96,12 +95,10 @@ class UnetTCAM(nn.Module):
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  seg_h_out_channels: int = 2, freeze_cl: bool = False):
         super().__init__()
-        if pooling != constants.WGAP:
-            raise NotImplementedError(f"pooling head {pooling} is not "
-                                      "ported yet")
         self.freeze_cl = freeze_cl
         self.encoder = encoder
-        self.classification_head = WGAP(encoder.out_channels[-1], classes)
+        self.classification_head = build_pooling_head(
+            pooling, encoder.out_channels[-1], classes)
         self.decoder = UnetDecoder(encoder.out_channels, decoder_channels)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
                                                   seg_h_out_channels)

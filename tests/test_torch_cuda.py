@@ -167,3 +167,55 @@ def test_nvjpeg_round_trip_and_card_route(card, tmp_path):
         torch.stack(frames), 40, 32, xs, ys, flips)
     assert torch.allclose(raw.cpu(), want_r, atol=1e-4, rtol=0)
     assert torch.allclose(norm.cpu(), want_n, atol=1e-5, rtol=0)
+
+
+def test_pil_resize_on_the_card_bit_equal_to_cpu(card, tmp_path):
+    """The dump's resize (Pillow's BILINEAR as integer passes) on the
+    card against the same function on the CPU, for the same decoded
+    frames, whole and through the card's route (nvJPEG + resize)."""
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    from tcam_wsol_video_tpu_torch.data.synthetic import write_jpeg
+    from tcam_wsol_video_tpu_torch.data.transforms import \
+        pil_bilinear_resize
+    rng = np.random.default_rng(1)
+    paths = []
+    for i in range(3):
+        img = (rng.random((270, 360, 3)) * 200).astype(np.uint8)
+        img[50:150, 40 + 9 * i:210] = (30, 200, 90)
+        paths.append(str(tmp_path / f"f{i}.jpg"))
+        write_jpeg(paths[-1], img, card)
+    frames = torch.stack([nvjpeg_loader.decode(p, card) for p in paths])
+    for size in ((224, 224), (32, 32)):
+        want = pil_bilinear_resize(frames.cpu(), size)
+        assert torch.equal(pil_bilinear_resize(frames, size).cpu(), want)
+        assert torch.equal(
+            nvjpeg_loader.load_resized_u8(paths, size, card).cpu(), want)
+
+
+# TF32 convolutions (cuDNN's default) against the CPU's fp32: logits
+# relative to the largest (path A's TF32 bound, chip_smoke.py); CAMs are
+# min-max normalized maps in [0, 1], absolute
+TF32_RTOL = 1e-2
+CAM_TF32_ATOL = 2e-2
+
+
+def test_std_cl_eval_step_on_the_card_matches_cpu(card):
+    import copy
+    from tcam_wsol_video_tpu_torch.core.config import stage1_cam_recipe
+    from tcam_wsol_video_tpu_torch.engine.steps import make_cam_eval_step
+    from tcam_wsol_video_tpu_torch.models.classifier import STDClassifier
+    from tcam_wsol_video_tpu_torch.models.resnet import ResNetWSOL
+    torch.manual_seed(0)
+    model = STDClassifier(ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10)
+    args = stage1_cam_recipe(crop_size=64)
+    x = torch.randn(4, 64, 64, 3)
+    labels = torch.tensor([0, 3, 9, 3])
+    cams, logits = make_cam_eval_step(model, args)(x, targets=labels)
+    gpu = copy.deepcopy(model).to(card)
+    cams_c, logits_c = make_cam_eval_step(gpu, args)(
+        x.to(card), targets=labels.to(card))
+    assert cams_c.shape == cams.shape == (4, 64, 64)
+    assert (cams_c.cpu() - cams).abs().max() <= CAM_TF32_ATOL
+    assert (logits_c.cpu() - logits).abs().max() <= \
+        TF32_RTOL * logits.abs().max()

@@ -1,11 +1,15 @@
 """Shared builders for the port's parity tests (tests/test_torch_*.py):
-a small UnetTCAM on both sides with the same weights."""
+a small UnetTCAM, or a small STDClassifier, on both sides with the same
+weights."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tcam_wsol_video_tpu.models.classifier import \
+    STDClassifier as JSTDClassifier
 from tcam_wsol_video_tpu.models.resnet import ResNetWSOL as JResNetWSOL
 from tcam_wsol_video_tpu.models.unet import UnetTCAM as JUnetTCAM
+from tcam_wsol_video_tpu_torch.models.classifier import STDClassifier
 from tcam_wsol_video_tpu_torch.models.resnet import ResNetWSOL
 from tcam_wsol_video_tpu_torch.models.transplant import load_flax_variables
 from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
@@ -20,7 +24,7 @@ def jax_model(freeze_cl: bool = True) -> JUnetTCAM:
                      classes=CLASSES, freeze_cl=freeze_cl)
 
 
-def jax_variables(model: JUnetTCAM, seed: int = 0) -> dict:
+def jax_variables(model, seed: int = 0) -> dict:
     """flax init, then BN statistics drawn from numpy so that inference
     mode exercises them (init leaves mean 0 / var 1)."""
     x = jnp.zeros((1, CROP, CROP, 3), jnp.float32)
@@ -35,6 +39,17 @@ def jax_variables(model: JUnetTCAM, seed: int = 0) -> dict:
                          ).astype(np.float32),
         variables["batch_stats"])
     return {"params": variables["params"], "batch_stats": stats}
+
+
+def jax_classifier() -> JSTDClassifier:
+    return JSTDClassifier(encoder=JResNetWSOL(layers=LAYERS), pooling="WGAP",
+                          classes=CLASSES)
+
+
+def torch_classifier(variables: dict) -> STDClassifier:
+    model = STDClassifier(ResNetWSOL(layers=LAYERS), "WGAP", CLASSES)
+    load_flax_variables(model, variables)
+    return model
 
 
 def torch_model(variables: dict, freeze_cl: bool = True) -> UnetTCAM:
