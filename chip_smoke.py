@@ -7,9 +7,10 @@ Phases (any failure raises and the script exits non-zero):
      per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and a few edge shapes (for the exact filter, the
-     edges of its tile-pair schedule too), with the stated tolerances, and
-     check that two launches of the exact filter at batch 32 are
-     bit-equal;
+     edges of its tile-pair schedule too; for the Nystrom passes B = 1,
+     ragged P and M, D = 3 and 8, K = 8), with the stated tolerances, and
+     check that two launches of the exact filter, and two calls of each
+     Nystrom pass, at batch 32 are bit-equal;
   3. path A, the stage-2 TCAM recipe of the end-to-end script (UnetTCAM
      on ResNet-50, 224 px, batch 32, exact dense CRF; fp32 weights and
      activations with TF32 cuDNN convolutions, random weights from SEED):
@@ -50,7 +51,13 @@ Phases (any failure raises and the script exits non-zero):
      load and equal after; the exact CRF kernel once per step), and
      cli/evaluate.main at stage 2's
      best-localization snapshot against the trainer's own test pass;
- 11. time each kernel (and the exact filter's per-call spread and
+ 11. path F, stage 2 without a CAM store (cli/train.main with path D's
+     flags, --sl_tc_use_roi false, 1 epoch) from path E's stage-1
+     folder: each step recomputes the seed CAMs with the frozen
+     classifier of its best-localization snapshot (past step 0); the
+     seeder must get non-zero CAMs every step and the exact CRF kernel
+     must launch once per step; launch counts reset just before;
+ 12. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -264,10 +271,14 @@ def check_bit_equal(seed: int, b: int = 32, crop: int = 224) -> dict:
     return {"case": f"B{b}_{crop}x{crop}_two_launches", "bit_equal": same}
 
 
-def landmark_inputs(gen, b, h, w, sigma_xy, m_req, k=2):
-    """Centred features, landmark features and indices, values."""
+def landmark_inputs(gen, b, h, w, sigma_xy, m_req, k=2, extra_d=0):
+    """Centred features (extra_d standard normal columns after the
+    bilateral ones), landmark features and indices, values."""
     from tcam_wsol_video_tpu_torch.ops.crf import _landmark_grid_indices
     feats, vals = filter_inputs(gen, b, h, w, sigma_xy, k)
+    if extra_d:
+        feats = torch.cat([feats, torch.randn(
+            (b, h * w, extra_d), generator=gen, device="cuda")], -1)
     feats = (feats - feats.mean(1, keepdim=True)).contiguous()
     idx = torch.from_numpy(_landmark_grid_indices(h, w, m_req)).cuda()
     return feats, feats[:, idx].contiguous(), idx, vals
@@ -311,31 +322,37 @@ def _rel_row(kernel, name, got, want, shape, rtol):
             "max_abs_err": err, "max_rel_err": rel, "rtol": rtol}
 
 
-def compare_nystrom(name, feats, fm, idx, vals):
-    """Pass 1 against its plain version, the fused filter and the whole
+def compare_nystrom(name, feats, fm, idx, vals, routes=True):
+    """Pass 1 against its plain version, pass 2 against its plain version
+    on the plain solve's alpha, the fused filter and (routes) the whole
     landmark filter on both routes against nystrom_filter_plain."""
     from tcam_wsol_video_tpu_torch.ops import crf, linalg
     from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
     shape = list(feats.shape) + [fm.shape[1], vals.shape[2]]
     with linalg.record_info() as infos:
         rhs = landmarks.nystrom_rhs(feats, fm, vals)
+        want_rhs = landmarks.nystrom_rhs_plain(feats, fm, vals)
+        kmm = landmarks.add_ridge(landmarks.build_knm_plain(fm, fm), 1e-2)
+        alpha = linalg.batched_cholesky_solve(kmm, want_rhs)
+        out = landmarks.nystrom_out(feats, fm, alpha)
         fused = landmarks.nystrom_filter(feats, vals, idx)
-        api_fused = crf.gaussian_filter_apply_landmarks(feats, vals, idx,
-                                                        fused=True)
-        api_build = crf.gaussian_filter_apply_landmarks(feats, vals, idx,
-                                                        fused=False)
+        api = {}
+        if routes:
+            for route in ("fused", "build_route"):
+                api[route] = crf.gaussian_filter_apply_landmarks(
+                    feats, vals, idx, fused=route == "fused")
         torch.cuda.synchronize()
         want = landmarks.nystrom_filter_plain(feats, vals, idx)
     check(all(int(i.abs().max()) == 0 for i in infos),
           f"{name}: a Cholesky factorization failed")
-    rows = [_rel_row("nystrom_rhs", name, rhs,
-                     landmarks.nystrom_rhs_plain(feats, fm, vals), shape,
-                     FILTER_RTOL),
-            _rel_row("nystrom_out", name, fused, want, shape, LMK_RTOL),
-            _rel_row("landmark_filter_fused", name, api_fused, want,
-                     shape, LMK_RTOL),
-            _rel_row("landmark_filter_build_route", name, api_build,
-                     want, shape, LMK_RTOL)]
+    rows = [_rel_row("nystrom_rhs", name, rhs, want_rhs, shape, FILTER_RTOL),
+            _rel_row("nystrom_out", name, out,
+                     landmarks.nystrom_out_plain(feats, fm, alpha), shape,
+                     LMK_RTOL),
+            _rel_row("nystrom_filter_fused", name, fused, want, shape,
+                     LMK_RTOL)]
+    rows += [_rel_row(f"landmark_filter_{route}", name, got, want, shape,
+                      LMK_RTOL) for route, got in api.items()]
     return rows
 
 
@@ -354,7 +371,44 @@ def phase_landmark_checks(seed: int) -> list:
             rows.append(compare_knm(name, feats, fm, torch.bfloat16))
         rows.append(compare_knm(name + "_Kmm", fm, fm))
         rows += compare_nystrom(name, feats, fm, idx, vals)
+    # the Nystrom passes' edges: B = 1, P and M off the 8-key and 16-row
+    # tiles, D = 3 and 8 (two k = 8 steps), K = 8 (and K = 5 padded to 8)
+    for name, b, h, w, sxy, m_req, k, extra_d in (
+            ("B1_29x31_D5_M128", 1, 29, 31, 100.0, 128, 2, 0),
+            ("B1_9x13_D3_M40", 1, 9, 13, None, 40, 2, 0),
+            ("K8_40x40_D5_M256", 2, 40, 40, 100.0, 256, 8, 0),
+            ("K5_37x41_D5_M200", 2, 37, 41, 100.0, 200, 5, 0),
+            ("D8_48x48_M300", 2, 48, 48, 100.0, 300, 2, 3),
+            ("D8_K8_B1_33x35_M150", 1, 33, 35, 100.0, 150, 8, 3)):
+        feats, fm, idx, vals = landmark_inputs(gen, b, h, w, sxy, m_req, k,
+                                               extra_d)
+        print(f"[landmarks] {name}: P={h * w} M={fm.shape[1]} "
+              f"D={feats.shape[2]} K={k}", flush=True)
+        rows += compare_nystrom(name, feats, fm, idx, vals, routes=False)
     return rows
+
+
+def check_nystrom_bit_equal(seed: int, b: int = 32, crop: int = 224,
+                            m_req: int = 1024) -> dict:
+    """Two calls of each Nystrom pass on the same inputs at path B's shape
+    give bit-equal results (no atomics; pass 1's slices added in a fixed
+    order)."""
+    from tcam_wsol_video_tpu_torch.ops import linalg
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    feats, fm, _, vals = landmark_inputs(gen, b, crop, crop, 100.0, m_req)
+    rhs = [landmarks.nystrom_rhs(feats, fm, vals) for _ in range(2)]
+    kmm = landmarks.add_ridge(landmarks.build_knm(fm, fm), 1e-2)
+    alpha = linalg.batched_cholesky_solve(kmm, rhs[0])
+    out = [landmarks.nystrom_out(feats, fm, alpha) for _ in range(2)]
+    same = {"nystrom_rhs": bool(torch.equal(*rhs)),
+            "nystrom_out": bool(torch.equal(*out))}
+    print(f"[check] Nystrom passes B={b} {crop}x{crop} M={fm.shape[1]}: two "
+          f"calls bit-equal {same}", flush=True)
+    check(all(same.values()), f"Nystrom passes: two calls differ {same}")
+    del feats, fm, vals, rhs, kmm, alpha, out
+    torch.cuda.empty_cache()
+    return {"case": f"B{b}_{crop}x{crop}_M{m_req}_two_calls", **same}
 
 
 # --------------------------------------------------------------- main path
@@ -760,28 +814,31 @@ def common_flags(root: str, seed: int = SEED) -> list:
 
 
 def path_d_flags(root: str, store: str, outd: str, pretrained: str = "",
-                 seed: int = SEED) -> list:
+                 seed: int = SEED, epochs: int = PATH_D_EPOCHS,
+                 use_roi: bool = True, exp_id: str = "s2") -> list:
     """The stage-2 command of cmds/e2e_synth224_tpu.sh (freeze_cl from
-    config_yaml/ytov1_stage2_tcam.yaml), 2 epochs, random weights from
-    `seed`, over the CAM store `store` (and the stage-1 folder
-    `pretrained`, when given), no rolling checkpoints."""
+    config_yaml/ytov1_stage2_tcam.yaml), `epochs` epochs, random weights
+    from `seed`, over the CAM store `store` (none when empty: the seed
+    CAMs are then recomputed from the stage-1 folder's classifier) and the
+    stage-1 folder `pretrained`, when given; no rolling checkpoints."""
     return common_flags(root, seed) + [
         "--task", "TCAM", "--arch", "UnetTCAM",
         "--batch_size", "32", "--eval_batch_size", "32",
-        "--max_epochs", str(PATH_D_EPOCHS), "--lr", "0.01",
+        "--max_epochs", str(epochs), "--lr", "0.01",
         "--freeze_cl", "True",
         "--elb_init_t", "1.0", "--elb_max_t", "10.0", "--elb_mulcoef",
         "1.01", "--sl_tc", "True", "--sl_tc_lambda", "1.0", "--sl_tc_min",
         "1", "--sl_tc_max", "1", "--sl_tc_ksz", "3", "--sl_tc_max_p", "0.6",
         "--sl_tc_min_p", "0.1", "--sl_tc_seed_tech", "seed_weighted",
-        "--sl_tc_use_roi", "True", "--sl_tc_roi_method", "roi_all",
+        "--sl_tc_use_roi", str(use_roi), "--sl_tc_roi_method", "roi_all",
         "--sl_tc_roi_min_size", "0.05", "--sl_tc_knn", "1",
         "--sl_tc_knn_mode", "before", "--sl_tc_knn_t", "0.0",
         "--crf_tc", "True", "--crf_tc_lambda", "2e-9",
         "--crf_tc_sigma_rgb", "15.0", "--crf_tc_sigma_xy", "100.0",
         "--crf_tc_scale", "1.0", "--max_sizepos_tc", "True",
-        "--max_sizepos_tc_lambda", "0.01", "--std_cams_folder", store,
-        "--checkpoint_save", "0", "--outd", outd, "--exp_id", "s2"] + (
+        "--max_sizepos_tc_lambda", "0.01", "--checkpoint_save", "0",
+        "--outd", outd, "--exp_id", exp_id] + (
+            ["--std_cams_folder", store] if store else []) + (
             ["--folder_pre_trained_cl", pretrained] if pretrained else [])
 
 
@@ -1111,6 +1168,7 @@ def phase_chain(seed: int, data: dict) -> dict:
           f"{ev_s:.2f}), peak {peak:.2f} GiB", flush=True)
     return {"wall_s": wall_s, "stage1_s": s1_s, "stage2_s": s2_s,
             "evaluate_s": ev_s, "launches": launches,
+            "stage1_outd": s1["outd"],
             "stage1": {"train": s1["records"]["train"],
                        "eval": s1["records"]["eval"],
                        "test_best_loc": rep1["best"]},
@@ -1122,6 +1180,66 @@ def phase_chain(seed: int, data: dict) -> dict:
                        "test_best_loc": want},
             "evaluate": dict(ev),
             "evaluate_gap": gaps, "peak_mem_gib": peak}
+
+
+# ------------------------------------- path F: TCAM without a CAM store
+def phase_recompute(seed: int, data: dict, s1_outd: str) -> dict:
+    """Path F: cli/train.main with path D's stage-2 flags but no CAM store
+    and --sl_tc_use_roi false, from path E's stage-1 folder, 1 epoch: each
+    step recomputes the seed CAMs from the frozen classifier of the
+    folder's best-localization snapshot.  Counts reset just before; the
+    CAMs handed to the seeder are recorded on the card (one max per
+    image, read after the run)."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.engine import steps as port_steps
+
+    root = data["root"]
+    seen = []
+    seeder = port_steps.tcam_seeder
+
+    def spy(cams, cfg, **kw):
+        seen.append(cams.detach().amax(dim=(1, 2)))
+        return seeder(cams, cfg, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    port_steps.tcam_seeder = spy
+    try:
+        t0 = time.perf_counter()
+        out = cli_train.main(path_d_flags(
+            root, "", os.path.join(root, "exps_f"), pretrained=s1_outd,
+            seed=SEED + 2, epochs=1, use_roi=False, exp_id="f"))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        port_steps.tcam_seeder = seeder
+    launches = read_counts()
+    rep = report_trainer("path F", out, 1)
+    steps = rep["steps"]
+    cam_max = torch.stack(seen).cpu() if seen else torch.zeros(0)
+    k = launches["bilateral_exact"]["kernel"]
+    print(f"[path F] seeder classifier from stage 1's best_localization "
+          f"snapshot (step {out['seeder_step']}); {len(seen)} recomputed "
+          f"batches in {steps} steps, per-image CAM max "
+          f"{cam_max.min().item() if seen else 0.0:.4f} at least; "
+          f"bilateral_exact {k} launches; cli/train.main {wall_s:.2f} s; "
+          f"{launches}", flush=True)
+    check(out["seeder_step"] is not None and out["seeder_step"] > 0,
+          f"path F: the seeder classifier is stage 1's untrained snapshot "
+          f"(step {out['seeder_step']})")
+    check(len(seen) == steps and bool((cam_max > 0.0).all()),
+          "path F: the seeder did not get the classifier's CAMs every step")
+    check(k == steps, f"path F: the exact CRF kernel launched {k} times in "
+          f"{steps} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path F: a plain version ran")
+    return {"wall_s": wall_s, "seeder_step": out["seeder_step"],
+            "launches": launches, "steps": steps,
+            "cam_max_min": cam_max.min().item(),
+            "train": out["records"]["train"], "eval": out["records"]["eval"],
+            "test_best_loc": rep["best"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 # ------------------------------------------------------------ TF32 vs fp32
@@ -1461,6 +1579,7 @@ def main(argv=None) -> int:
     result["checks"] = phase_kernel_checks(SEED)
     result["bit_equal"] = check_bit_equal(SEED)
     result["checks"] += phase_landmark_checks(SEED)
+    result["nystrom_bit_equal"] = check_nystrom_bit_equal(SEED)
     result["main_path"] = phase_main_path(SEED, STEPS, a.profile)
     result["tf32_gap"] = phase_tf32_gap(SEED, result["main_path"]["steps"])
     result["crf_parity"] = phase_crf_parity(SEED)
@@ -1469,6 +1588,8 @@ def main(argv=None) -> int:
     data = make_trainer_set(SEED)
     result["trainer"] = phase_trainer(SEED, data)
     result["chain"] = phase_chain(SEED, data)
+    result["recompute"] = phase_recompute(SEED, data,
+                                          result["chain"]["stage1_outd"])
     shutil.rmtree(data["root"])
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
@@ -1499,6 +1620,8 @@ def main(argv=None) -> int:
         "launches_path_d": result["trainer"]["launches"]["bilateral_exact"][
             "kernel"],
         "launches_path_a": result["main_path"]["launches"]["kernel"],
+        "launches_path_f": result["recompute"]["launches"][
+            "bilateral_exact"]["kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -1517,9 +1640,9 @@ def main(argv=None) -> int:
         bd = lmk["bounds"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + "landmarks.cu",
-            "replaces": ("tcam_wsol_video_tpu/ops/pallas/landmarks.py:248"
-                         if name == "knm_build" else
-                         "tcam_wsol_video_tpu/ops/pallas/landmarks.py:137"),
+            "replaces": "tcam_wsol_video_tpu/ops/pallas/landmarks.py:" + {
+                "knm_build": "248", "nystrom_rhs": "137",
+                "nystrom_out": "170"}[name],
             "launches": launches, "max_abs_err": max_err(name),
             "ms": lmk[f"{key}_ms"], "plain_ms": lmk[f"{key}_plain_ms"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -1561,8 +1684,15 @@ def main(argv=None) -> int:
           f" ms/step, test MaxBoxAcc@50 "
           f"{ch['stage2']['test_best_loc']['maxboxacc_50']:.2f} (evaluate "
           f"{ch['evaluate']['maxboxacc_50']:.2f}); the chain "
-          f"{ch['wall_s']:.1f} s; total {result['seconds']:.1f} s",
-          flush=True)
+          f"{ch['wall_s']:.1f} s", flush=True)
+    pf = result["recompute"]
+    print(f"[summary] path F: seeds recomputed from stage 1's snapshot "
+          f"(step {pf['seeder_step']}), median step "
+          f"{per_epoch(pf['train'], 'median_step_ms')} ms, data wait "
+          f"{per_epoch(pf['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"test MaxBoxAcc@50 {pf['test_best_loc']['maxboxacc_50']:.2f}; "
+          f"cli/train.main {pf['wall_s']:.1f} s; total "
+          f"{result['seconds']:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

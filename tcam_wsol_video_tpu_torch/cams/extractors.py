@@ -40,6 +40,9 @@ def cam_fc_weights(feats: torch.Tensor, fc_weight: torch.Tensor,
                    ) -> torch.Tensor:
     """Classic CAM: the channel weights are the fc row of the target class
     (one row further with a background class).  feats (B, C, h, w);
-    fc_weight (classes, C), the nn.Linear layout; class_idx (B,)."""
+    fc_weight (classes, C), the nn.Linear layout; class_idx (B,).  An
+    index past the last row reads the last row, as JAX's gather clamps it
+    (the WGAP head has no background row)."""
     idx = class_idx.long() + (1 if support_background else 0)
-    return _weighted_cam(feats, fc_weight[idx])
+    return _weighted_cam(feats, fc_weight[idx.clamp(max=fc_weight.shape[0]
+                                                    - 1)])

@@ -14,14 +14,17 @@ from --seed, then the encoder and classifier of --folder_pre_trained_cl
 when given: a stage-1 experiment folder written by this package, whose
 tcam_pretrained_cl_ch_pt snapshot is read), and runs Trainer.fit:
 validation, the epochs, model selection and the test split at the best
-snapshots.  It runs on the card unless --device cpu is given; without
-CUDA it raises.
+snapshots.  TCAM with sl_tc and no --std_cams_folder recomputes its seed
+CAMs every step from a frozen stage-1 classifier: the encoder and head of
+the folder's tcam_pretrained_seeder_ch_pt snapshot, or random weights
+without a folder, as the JAX CLI does.  It runs on the card unless
+--device cpu is given; without CUDA it raises.
 """
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -106,26 +109,55 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
     return args, train_pipe, eval_pipes
 
 
-def load_pretrained_classifier_weights(args: TCAMConfig, model) -> None:
-    """The encoder and classification head of the stage-1 snapshot in
-    --folder_pre_trained_cl (its tcam_pretrained_cl_ch_pt subfolder when
-    present)."""
-    folder = args.folder_pre_trained_cl
-    if not folder:
-        return
-    chpt_dir = os.path.join(folder, args.tcam_pretrained_cl_ch_pt)
+def _load_stage1_snapshot(folder: str, snapshot: str, model) -> int:
+    """Loads the encoder and classification head of the best-model
+    snapshot in folder/snapshot (folder itself when that is no folder)
+    into model; returns the snapshot's step."""
+    chpt_dir = os.path.join(folder, snapshot)
     if not os.path.isdir(chpt_dir):
         chpt_dir = folder
-    _, payload = ckpt.load_best_model(chpt_dir)
+    step, payload = ckpt.load_best_model(chpt_dir)
     if payload is None:
         raise FileNotFoundError(f"no best-model snapshot under {chpt_dir}")
     ckpt.load_components(model, payload["components"],
                          only=["encoder", "classification_head"])
+    return step
+
+
+def load_pretrained_classifier_weights(args: TCAMConfig, model) -> None:
+    """The encoder and classification head of the stage-1 snapshot in
+    --folder_pre_trained_cl (its tcam_pretrained_cl_ch_pt subfolder when
+    present)."""
+    if args.folder_pre_trained_cl:
+        _load_stage1_snapshot(args.folder_pre_trained_cl,
+                              args.tcam_pretrained_cl_ch_pt, model)
+
+
+def load_seeder_classifier(args: TCAMConfig, kc: KeyChain, device
+                           ) -> Tuple[torch.nn.Module, Optional[int]]:
+    """The frozen stage-1 classifier whose CAMs seed TCAM without a CAM
+    store (JAX cli/train.py): the STD_CL model of args, random weights
+    from the key chain's "cls" seed (the stage-2 model's draw from --seed
+    is left as it is), then the encoder and classification head of the
+    tcam_pretrained_seeder_ch_pt snapshot of --folder_pre_trained_cl
+    when given; in eval mode, without gradients.  Returns (model, the
+    snapshot's step, None without a folder)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(kc.key("cls", device="cpu").initial_seed())
+        model = create_model_from_args(args, override_arch_for_classifier=True,
+                                       device=device)
+    step = None
+    if args.folder_pre_trained_cl:
+        step = _load_stage1_snapshot(args.folder_pre_trained_cl,
+                                     args.tcam_pretrained_seeder_ch_pt, model)
+    return model.eval().requires_grad_(False), step
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Returns {'test': {snapshot: results}, 'records': per-epoch train
-    and per-pass eval records, 'outd': the experiment folder}."""
+    and per-pass eval records, 'outd': the experiment folder,
+    'seeder_step': the step of the seeder classifier's snapshot (None
+    when no CAMs are recomputed, or its weights are random)}."""
     extra = argparse.ArgumentParser(add_help=False)
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
@@ -137,9 +169,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         torch.manual_seed(args.seed)
         model = create_model_from_args(args, device=device)
     load_pretrained_classifier_weights(args, model)
+    classifier, seeder_step = None, None
+    if (args.task == constants.TCAM and args.sl_tc
+            and train_pipe.ds.cam_store is None):
+        classifier, seeder_step = load_seeder_classifier(args, kc, device)
 
     trainer = Trainer(args, model, train_pipe, eval_pipes, keychain=kc,
-                      device=device)
+                      device=device, classifier=classifier)
     results = trainer.fit()
     trainer.logger.log({"final": {
         tag: {k: v for k, v in r.items() if isinstance(v, (int, float))}
@@ -147,7 +183,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     with open(os.path.join(trainer.outd, "passed.txt"), "w") as f:
         f.write("done\n")
     return {"test": results, "records": trainer.records,
-            "outd": trainer.outd}
+            "outd": trainer.outd, "seeder_step": seeder_step}
 
 
 if __name__ == "__main__":

@@ -65,6 +65,8 @@ class TCAMConfig:
     encoder_name: str = constants.RESNET50
     spatial_pooling: str = constants.WGAP
     freeze_cl: bool = False
+    # the classifier's CAM of class label + 1 (a background class at 0)
+    support_background: bool = False
     folder_pre_trained_cl: str = ""
     # stage-1 snapshots: the classifier that stage 2 starts from, and the
     # one whose CAMs seed it

@@ -24,26 +24,37 @@ from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 
 
 def make_train_step(master_loss: MasterLoss, args,
-                    seeder_cfg: Optional[TCAMSeederCfg] = None):
+                    seeder_cfg: Optional[TCAMSeederCfg] = None,
+                    classifier_model=None):
     """Returns train_step(state, batch, switches, seed_weighted,
     generator=None, gumbel=None) -> metrics dict; state is updated in place
     (model parameters, BN statistics, optimizer, step).
 
     gumbel (B, 2, H*W) injects the seeder's fg/bg Gumbel noise; otherwise
     it is drawn from `generator`.  STD_CL takes the CE of the logits and
-    draws no seeds (seed_weighted, generator and gumbel are unused)."""
+    draws no seeds (seed_weighted, generator and gumbel are unused).
+    classifier_model, the frozen stage-1 classifier of a TCAM run without
+    a CAM store: each step first recomputes batch["std_cam"] from its CAMs
+    of the labels (recompute_seed_cams)."""
     if args.task not in (constants.STD_CL, constants.TCAM):
         raise NotImplementedError(f"the {args.task} step is not ported")
     std_cl = args.task == constants.STD_CL
     needs_seeds = not std_cl and bool(args.sl_tc)
     if needs_seeds and seeder_cfg is None:
         raise ValueError("sl_tc needs a seeder config")
+    if classifier_model is not None and not needs_seeds:
+        raise ValueError("seed CAMs are recomputed only for TCAM with sl_tc")
+    cam_fn = (make_classifier_cam_fn(classifier_model, args)
+              if classifier_model is not None else None)
 
     def train_step(state: TrainState, batch, switches: Sequence[float],
                    seed_weighted: bool,
                    generator: Optional[torch.Generator] = None,
                    gumbel: Optional[torch.Tensor] = None) -> dict:
         model, opt = state.model, state.optimizer
+        if cam_fn is not None:
+            batch = {**batch, "std_cam": recompute_seed_cams(
+                cam_fn, batch["image"], batch["label"])}
         seeds = None
         if needs_seeds:
             roi = batch["roi"] if args.sl_tc_use_roi else None
@@ -95,7 +106,8 @@ def _classifier_cam(out: dict, model, targets: torch.Tensor,
     if args.method != constants.METHOD_CAM:
         raise NotImplementedError(f"CAM method {args.method} is not ported")
     return ex.cam_fc_weights(out["features"][-1],
-                             model.classification_head.fc.weight, targets)
+                             model.classification_head.fc.weight, targets,
+                             args.support_background)
 
 
 def make_cam_eval_step(model, args):
@@ -151,3 +163,17 @@ def make_classifier_cam_fn(classifier_model, args):
         return torch.nan_to_num(cam, nan=0.0, posinf=1.0, neginf=0.0)
 
     return cam_fn
+
+
+@torch.no_grad()
+def recompute_seed_cams(cam_fn, images: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """The seeder's CAMs without a CAM store (JAX engine/steps.py
+    train_step, recompute_std_cams): the frozen classifier's CAMs of the
+    labels, resized to the crop of images (B, H, W, 3) with
+    align_corners=False when their size differs, clipped to [0, 1]."""
+    cams = cam_fn(images, labels)
+    if tuple(cams.shape[-2:]) != tuple(images.shape[1:3]):
+        cams = resize_bilinear(cams[..., None], tuple(images.shape[1:3]),
+                               align_corners=False)[..., 0]
+    return cams.clamp(0.0, 1.0)

@@ -93,8 +93,12 @@ class _StepClock:
 
 class Trainer:
     def __init__(self, args, model, train_pipe, eval_pipes: Dict[str, tuple],
-                 keychain: Optional[KeyChain] = None, device="cuda"):
-        """eval_pipes: {split: (dataset, pipeline)}."""
+                 keychain: Optional[KeyChain] = None, device="cuda",
+                 classifier=None):
+        """eval_pipes: {split: (dataset, pipeline)}; classifier: the frozen
+        stage-1 classifier, whose CAMs seed a TCAM run without a CAM
+        store (the train step recomputes them, as the JAX trainer's
+        _recompute_cams does)."""
         if args.task not in (constants.STD_CL, constants.TCAM):
             raise NotImplementedError(f"the {args.task} trainer is not "
                                       "ported")
@@ -110,9 +114,14 @@ class Trainer:
         optimizer = build_optimizer(args, model, self.lr_fn(0))
         self.state = TrainState(model, optimizer, elb_t=args.elb_init_t)
         tcam = args.task == constants.TCAM
+        self._recompute_cams = (
+            tcam and bool(args.sl_tc)
+            and getattr(train_pipe.ds, "cam_store", None) is None
+            and classifier is not None)
         self.train_step = make_train_step(
             self.master_loss, args,
-            seeder_cfg_from_args(args) if tcam else None)
+            seeder_cfg_from_args(args) if tcam else None,
+            classifier_model=classifier if self._recompute_cams else None)
         self.decay_temp: Optional[DecayTemp] = None
         if tcam:
             self.decay_temp = DecayTemp(

@@ -10,9 +10,12 @@ writes K_nm, or K_mm from (fm, fm), in fp32 or bf16; bound by the bytes
 of the write.  `nystrom_filter` replaces nystrom_filter_pallas
 (landmarks.py:91): pass 1 (`nystrom_rhs`) rhs = K_mn v, the Cholesky
 solve (ops/linalg.py), pass 2 (`nystrom_out`) out = K_nm alpha; K_nm is
-never written and each pass recomputes the weights; bound by the
-operations.  The kernels mask the ragged edges of P and M themselves, so
-the landmark count needs no padding and there are no pad landmarks.
+never written and each pass recomputes the weights, the cross term of
+their exponents as a tensor-core product of fp16 operands split into hi
+and lo parts (each feature must stay under 4.5e4 in magnitude); bound by
+the operations (the ex2 on MUFU).  The kernels mask the ragged edges of P
+and M themselves, so the landmark count needs no padding and there are
+no pad landmarks.
 
 A CUDA tensor goes to the kernels (or raises); only a CPU tensor takes
 the plain versions, which are the tests' oracle.  Launch counters:
@@ -39,8 +42,8 @@ _KERNEL_K = (2, 8)      # value widths of the Nystrom passes
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 # pass 1 splits P so that about this many blocks are in flight
 _RHS_TARGET_BLOCKS = 2048
-_RHS_TILE = 128         # pixel rows per shared-memory round (landmarks.cu)
-_RHS_LANDMARKS_PER_BLOCK = 256
+_RHS_TILE = 128         # keys per shared-memory round (NYS_KEYS)
+_RHS_LANDMARKS_PER_BLOCK = 256  # rows per block at K = 2 (nys_rows)
 
 knm_counts = LaunchCounter()
 rhs_counts = LaunchCounter()

@@ -179,6 +179,90 @@ def stepped(setup):
                 tlogits=tlogits, jlo=jlo, tlo=tlo)
 
 
+N_STEPS = 4
+# the models in float64 on both sides; both take the cross-entropy of
+# float32 logits (~1e-7 relative a step), which the loss's divergence at
+# this rate (2.7 -> 92 in 4 steps, on both sides) amplifies: the loss of
+# each step, and the sum of N_STEPS updates relative to the largest one
+# per tensor (measured: 3.5e-5 at most)
+LOSS64_RTOL = 1e-6
+DELTA64_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def stepped_n64(setup):
+    """N_STEPS consecutive STD_CL steps at the stage-1 rate (lr 0.01, 0.1
+    on layer4 and the head) on both sides, from the same state, one new
+    batch a step, so that the nesterov momentum trace and the weight
+    decay carry across steps (a first step starts from an empty trace).
+    The models, weights and images in float64 (JAX under enable_x64): in
+    float32 the reference's own gradients carry the cancellation of
+    flax's one-pass BatchNorm variance (up to ~8% of a layer4 conv
+    gradient at batch 8 against a float64 run, where the port's are
+    within 5e-6), and the divergence amplifies it past one step."""
+    from tcam_wsol_video_tpu.models.classifier import \
+        STDClassifier as JSTDClassifier
+    from tcam_wsol_video_tpu.models.resnet import ResNetWSOL as JResNetWSOL
+    _, variables = setup
+    targs = _recipe()
+    args = _jax_args(targs)
+    with jax.enable_x64(True):
+        f64 = jnp.float64
+        jm = JSTDClassifier(encoder=JResNetWSOL(layers=(1, 1, 1, 1),
+                                                dtype=f64),
+                            pooling="WGAP", classes=10, dtype=f64)
+        jvars = jax.tree_util.tree_map(lambda v: jnp.asarray(v, f64),
+                                       variables)
+        ml = jget_loss(args)
+        opt = jbuild_opt(args, jvars["params"], lambda e: args.lr)
+        jstate = JState.create(jvars, opt.init(jvars["params"]),
+                               args.elb_init_t)
+        jfn = jstep(jm, ml, opt, args)
+        tm = torch_classifier(variables).double()
+        tstate = TrainState(tm, build_optimizer(targs, tm, targs.lr),
+                            targs.elb_init_t)
+        tml = get_loss(targs)
+        tfn = make_train_step(tml, targs)
+        losses = []
+        for i in range(N_STEPS):
+            batch = _batch(20 + i)
+            batch["image"] = batch["image"].astype(np.float64)
+            jstate, jmet = jfn(jstate, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                               ml.switches(0), jax.random.PRNGKey(i),
+                               jnp.float32(0.0))
+            tmet = tfn(tstate, {k: _t(v) for k, v in batch.items()},
+                       tml.switches(0), False)
+            losses.append((float(tmet["loss"]), float(jmet["loss"])))
+        new = flax_to_state_dict(jax.tree_util.tree_map(
+            np.asarray, {"params": jstate.params,
+                         "batch_stats": jstate.batch_stats}))
+    return dict(old=flax_to_state_dict(variables), new=new, tm=tm,
+                tstate=tstate, losses=losses)
+
+
+@pytest.mark.parametrize("step", range(N_STEPS))
+def test_multi_step_losses_match_float64(stepped_n64, step):
+    got, want = stepped_n64["losses"][step]
+    assert abs(got - want) <= LOSS64_RTOL * abs(want), (step, got, want)
+
+
+def test_multi_step_parameter_updates_match_optax(stepped_n64):
+    """The summed update of N_STEPS steps, per tensor, and the BN
+    statistics after them."""
+    assert stepped_n64["tstate"].step == N_STEPS
+    old, new = stepped_n64["old"], stepped_n64["new"]
+    sd = stepped_n64["tm"].state_dict()
+    for k, want in new.items():
+        got = sd[k].numpy()
+        if "running_" in k:
+            assert_close(got, want, DELTA64_RTOL, k)
+            continue
+        d_got, d_want = got - old[k], want - old[k]
+        assert np.abs(d_want).max() > 0, k
+        assert_close(d_got, d_want, DELTA64_RTOL, k)
+
+
 @pytest.mark.parametrize("term", ["loss", "cl_loss"])
 def test_step_loss_matches(stepped, term):
     got = float(stepped["tmet"][term])
