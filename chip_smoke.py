@@ -12,16 +12,20 @@ Phases (any failure raises and the script exits non-zero):
      check that two launches of the exact filter, and two calls of each
      Nystrom pass, at batch 32 are bit-equal;
   3. path A, the stage-2 TCAM recipe of the end-to-end script (UnetTCAM
-     on ResNet-50, 224 px, batch 32, exact dense CRF; fp32 weights and
-     activations with TF32 cuDNN convolutions, random weights from SEED):
-     STEPS train steps and one eval step, with launch counts reset just
-     before;
-  4. the same first step with every convolution in full fp32, its loss
-     terms against path A's;
+     on ResNet-50, 224 px, batch 32, exact dense CRF; fp32 weights, the
+     JAX default dtype policy: bf16 train step, fp32 eval; random weights
+     from SEED): STEPS train steps and one eval step, with launch counts
+     reset just before; then the same STEPS steps from the same state at
+     compute_dtype float32 (TF32 cuDNN convolutions);
+  4. the same first step with every convolution in full fp32: its loss
+     terms against the TF32 step's (the TF32 gap) and against the bf16
+     step's (the bf16 gap);
   5. at batch 2, the exact CRF loss value and gradient through the kernel
      against the same quantities from the plain version;
   6. path B, the production stage-2 recipe (landmark CRF, M = 1024, the
-     build_knm kernel for K_nm and K_mm): STEPS train steps and one eval
+     build_knm kernel for K_nm and K_mm; compute_dtype float32, so that
+     its kernel and solve numbers compare with earlier runs): STEPS train
+     steps and one eval
      step; then the same first step from the same state through the fused
      Nystrom kernels (TCAM_FUSED_LANDMARKS=1), its loss terms against path
      B's; every Cholesky factorization checked (info == 0);
@@ -31,7 +35,9 @@ Phases (any failure raises and the script exits non-zero):
      kernels (both routes) against the plain versions;
   9. path D, the stage-2 trainer end to end through the CLI a user runs
      (cli/train.main with the stage-2 flags of the end-to-end script at
-     bs 32 / 224 px, 2 epochs, random weights): a synthetic YTOv1-sized
+     bs 32 / 224 px, 2 epochs, random weights, the default dtype policy
+     like paths E and F: bf16 train steps, fp32 eval, the convolutions'
+     weight dtypes counted): a synthetic YTOv1-sized
      set written with nvJPEG, its round trip held against the source
      frames, a stand-in CAM store in place of stage 1; the data layer
      (nvJPEG decode on the card, CAM fusion and ROI on the host), the
@@ -43,9 +49,9 @@ Phases (any failure raises and the script exits non-zero):
      set, through the CLIs a user runs, launch counts reset just before:
      stage 1 (cli/train.main, STD_CL, bs 32 / 224 px, lr 0.001, 8 epochs,
      random weights), cli/dump_cams.main at its best-localization
-     snapshot (past step 0; 640 CAMs and thresholds; the card's pixel
-     route held against the source frames, one batch's CAMs against the
-     CPU's), stage 2 with path D's flags from another seed over the dumped
+     snapshot (past step 0; bf16; 640 CAMs and thresholds; the card's
+     pixel route held against the source frames, one batch's CAMs at fp32
+     against the CPU's and at bf16 against fp32), stage 2 with path D's flags from another seed over the dumped
      store, starting from stage 1's best-classification encoder and head
      (past step 0; its own weights checked unequal to them before the
      load and equal after; the exact CRF kernel once per step), and
@@ -105,6 +111,11 @@ CRF_RTOL = 2e-4
 # a full-width step's loss terms, TF32 convolutions against full fp32:
 # TF32 keeps 10 mantissa bits (~5e-4 relative per product)
 TF32_RTOL = 1e-2
+# the same against a bf16 step (bf16 activations and convolution inputs,
+# fp32 BN statistics, losses cast to fp32 as in JAX): bf16 keeps 7
+# mantissa bits (~4e-3 relative per rounding, 8x TF32's), and every
+# activation is rounded, not only the products
+BF16_RTOL = 5e-2
 # K entries lie in [0, 1]: kernel and plain version differ by the fp32
 # cancellation of the norm expansion (|f|^2 up to ~2.5e2, so ~1e-4
 # absolute at most); in bf16 by one bf16 step at [0.5, 1) as well
@@ -142,6 +153,10 @@ PATH_E_EPOCHS = 8
 # [0, 1], absolute; TF32's 10 mantissa bits (~5e-4 relative a product,
 # path A's TF32 gap) through ~50 layers, then the normalization
 CAM_TF32_ATOL = 2e-2
+# the dump's CAMs at its default bf16 against fp32 on the card: bf16's
+# rounding of every activation through ~50 layers (~1-2% of a feature),
+# summed over 2048 channels and min-max normalized: a tenth of the range
+CAM_BF16_ATOL = 1e-1
 
 
 class Fail(RuntimeError):
@@ -485,10 +500,12 @@ class CrfTimer:
         return ms
 
 
-def build_main_path(seed: int, production: bool = False):
+def build_main_path(seed: int, production: bool = False,
+                    dtype: str = "bfloat16"):
     """The recipe's model, optimizer, steps, batch and seeder generator
-    (production: the production stage-2 recipe, landmark CRF); two builds
-    from one seed start from the same state."""
+    (production: the production stage-2 recipe, landmark CRF) at
+    compute_dtype `dtype`; two builds from one seed start from the same
+    state."""
     from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
     from tcam_wsol_video_tpu_torch.core.config import (
         stage2_tcam_production, stage2_tcam_recipe)
@@ -502,7 +519,7 @@ def build_main_path(seed: int, production: bool = False):
         create_model_from_args
 
     args = (stage2_tcam_production if production
-            else stage2_tcam_recipe)(seed=seed)
+            else stage2_tcam_recipe)(seed=seed, compute_dtype=dtype)
     kc = KeyChain(seed)
     torch.manual_seed(seed)
     model = create_model_from_args(args, device="cuda")
@@ -518,11 +535,15 @@ def build_main_path(seed: int, production: bool = False):
             master.switches(0))
 
 
-def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
+def phase_main_path(seed: int, steps: int, profile: bool,
+                    dtype: str) -> dict:
+    """Path A at compute_dtype `dtype` (eval at float32)."""
     from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
 
     (args, model, opt, state, train_step, eval_step, batch, gen,
-     switches) = build_main_path(seed)
+     switches) = build_main_path(seed, dtype=dtype)
+    tag = f"path A {dtype}"
+    torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
     records = []
@@ -538,7 +559,7 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
             rec["step_ms"] = step_ms
             rec["crf_kernel_ms"] = crf_timer.take_ms()
             records.append(rec)
-            print(f"[train] step {i}: " + " ".join(
+            print(f"[{tag}] step {i}: " + " ".join(
                 f"{k}={v:.6g}" for k, v in rec.items()), flush=True)
             for k, v in rec.items():
                 check(np.isfinite(v), f"step {i}: {k} is not finite")
@@ -550,11 +571,11 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
     launches = {"kernel": bilateral.counts.kernel,
                 "plain": bilateral.counts.plain}
     check(all(c["plain"] == 0 for c in read_counts().values()),
-          "path A: a plain version ran")
-    print(f"[eval] cams {tuple(cams.shape)} logits {tuple(logits.shape)} "
+          f"{tag}: a plain version ran")
+    print(f"[{tag} eval] cams {tuple(cams.shape)} logits {tuple(logits.shape)} "
           f"{eval_ms:.2f} ms; cam range [{cams.min().item():.4f}, "
           f"{cams.max().item():.4f}]", flush=True)
-    print(f"[launches] bilateral kernel={launches['kernel']} "
+    print(f"[{tag} launches] bilateral kernel={launches['kernel']} "
           f"plain={launches['plain']}", flush=True)
     crop = args.crop_size
     check(tuple(cams.shape) == (args.batch_size, crop, crop),
@@ -564,17 +585,18 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
     check(bool(torch.isfinite(cams).all()) and cams.min().item() >= 0.0
           and cams.max().item() <= 1.0, "eval cams outside [0, 1]")
     check(bool(torch.isfinite(logits).all()), "eval logits not finite")
-    check(launches["kernel"] >= steps, "the CRF kernel did not run on the "
-          f"main path ({launches['kernel']} launches)")
-    check(launches["plain"] == 0, "the plain filter ran on the main path")
+    check(launches["kernel"] == steps, f"{tag}: the CRF kernel launched "
+          f"{launches['kernel']} times in {steps} steps")
+    check(launches["plain"] == 0, f"{tag}: the plain filter ran")
 
     n_params = sum(p.numel() for p in model.parameters())
     n_frozen = sum(p.numel() for n, p in model.named_parameters()
                    if n.startswith(("encoder.", "classification_head.")))
-    print(f"[model] {n_params} parameters, {n_frozen} of them frozen "
+    print(f"[{tag} model] {n_params} parameters, {n_frozen} of them frozen "
           f"(encoder + head under freeze_cl)", flush=True)
     after = records[1:] if len(records) > 1 else records
-    out = {"steps": records, "eval_ms": eval_ms, "launches": launches,
+    out = {"dtype": dtype, "steps": records, "eval_ms": eval_ms,
+           "launches": launches,
            "params": n_params, "frozen_params": n_frozen,
            "median_step_ms": statistics.median(r["step_ms"] for r in after),
            "median_crf_kernel_ms": statistics.median(
@@ -582,13 +604,13 @@ def phase_main_path(seed: int, steps: int, profile: bool) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if profile:
         out["profile"] = profile_step(train_step, state, batch, switches,
-                                      gen)
+                                      gen, tag)
     del state, model, opt, batch
     torch.cuda.empty_cache()
     return out
 
 
-def profile_step(train_step, state, batch, switches, gen) -> dict:
+def profile_step(train_step, state, batch, switches, gen, tag) -> dict:
     """Kernel time by name over one train step (torch.profiler), and the
     device's idle share of that step's wall time."""
     from torch.autograd import DeviceType
@@ -611,14 +633,50 @@ def profile_step(train_step, state, batch, switches, gen) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     total = sum(r["device_ms"] for r in rows)
     idle = max(0.0, 1.0 - total / wall_ms)
-    print(f"[profile] kernel time {total:.2f} ms in a {wall_ms:.2f} ms step "
-          f"under the profiler (device idle {100 * idle:.1f}%); top:",
-          flush=True)
+    groups = group_kernel_time(rows)
+    print(f"[profile {tag}] kernel time {total:.2f} ms in a {wall_ms:.2f} ms "
+          f"step under the profiler (device idle {100 * idle:.1f}%); by "
+          f"group: " + "; ".join(f"{g} {ms:.2f}" for g, ms in groups.items())
+          + "; top:", flush=True)
     for r in rows[:12]:
-        print(f"[profile]   {r['device_ms']:9.3f} ms  x{r['calls']:<4d}"
+        print(f"[profile {tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<4d}"
               f" {r['name'][:90]}", flush=True)
     return {"kernel_ms": total, "wall_ms": wall_ms, "idle_share": idle,
-            "rows": rows[:60]}
+            "groups": groups, "rows": rows}
+
+
+# kernel-name patterns of the profile's groups, first match wins (BN
+# before the convolutions: cuDNN's BN kernels are cudnn:: too; the
+# convolutions before the GEMMs: cuDNN's implicit GEMMs say gemm)
+KERNEL_GROUPS = (
+    ("exact CRF", ("bilateral",)),
+    ("landmark kernels", ("knm", "nystrom")),
+    ("Cholesky solve", ("magma", "potrf", "potf2", "trsm", "trsv", "syrk",
+                        "herk", "chol")),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "implicit", "winograd",
+                      "conv", "cudnn")),
+    ("GEMMs", ("gemm", "cutlass", "cublas")),
+    ("optimizer", ("multi_tensor", "foreach")),
+    ("transposes and copies", ("transpose", "copy", "permute", "nchw",
+                               "nhwc")),
+    ("elementwise and reductions", ("elementwise", "reduce", "softmax",
+                                    "index", "scatter", "gather", "cat",
+                                    "fill", "where", "sum", "norm")),
+)
+
+
+def group_kernel_time(rows) -> dict:
+    """Device ms by KERNEL_GROUPS group (case-insensitive substrings), the
+    unmatched kernels under "rest"."""
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups["rest"] = 0.0
+    for r in rows:
+        name = r["name"].lower()
+        g = next((g for g, keys in KERNEL_GROUPS
+                  if any(k in name for k in keys)), "rest")
+        groups[g] += r["device_ms"]
+    return groups
 
 
 # ---------------------------------------------------- path B: production
@@ -680,10 +738,12 @@ def check_infos(infos, tag) -> int:
 
 
 def phase_production(seed: int, steps: int, profile: bool) -> dict:
-    """Path B (build route), then its first step on the fused route."""
+    """Path B (build route) at compute_dtype float32, then its first step
+    on the fused route; with `profile`, one step of each profiled, and a
+    build-route step at bf16 too."""
     from tcam_wsol_video_tpu_torch.ops import crf, linalg
     (args, model, _, state, train_step, eval_step, batch, gen,
-     switches) = build_main_path(seed, production=True)
+     switches) = build_main_path(seed, production=True, dtype="float32")
     print(f"[path B] crf_impl={args.crf_impl} M={args.crf_n_landmarks} "
           f"seeds {args.sl_tc_min}/{args.sl_tc_max} ksz {args.sl_tc_ksz}",
           flush=True)
@@ -722,13 +782,15 @@ def phase_production(seed: int, steps: int, profile: bool) -> dict:
     if profile:
         with fused_landmarks(False):
             out["profile"] = profile_step(train_step, state, batch,
-                                          switches, gen)
+                                          switches, gen, "path B float32")
     del state, model, batch
     torch.cuda.empty_cache()
+    if profile:
+        out["profile_bf16"] = profile_production_bf16(seed)
 
     # the same first step from the same state through the fused kernels
     (_, model, _, state, train_step, _, batch, gen,
-     switches) = build_main_path(seed, production=True)
+     switches) = build_main_path(seed, production=True, dtype="float32")
     with fused_landmarks(True), linalg.record_info() as infos, \
             CrfTimer(crf, "gaussian_filter_apply_landmarks") as timer:
         reset_counts()
@@ -761,13 +823,31 @@ def phase_production(seed: int, steps: int, profile: bool) -> dict:
     out["fused_crf_ms"] = statistics.median(r["crf_ms"] for r in fused_after)
     if profile:
         with fused_landmarks(True):
-            out["fused"]["profile"] = profile_step(train_step, state, batch,
-                                                   switches, gen)
+            out["fused"]["profile"] = profile_step(
+                train_step, state, batch, switches, gen,
+                "path B fused float32")
     # path C on this model: eval with the mean-field CRF refinement
     out["path_c"] = phase_post_process(args, model, batch)
     del state, model, batch
     torch.cuda.empty_cache()
     return out
+
+
+def profile_production_bf16(seed: int) -> dict:
+    """One profiled build-route step of path B at compute_dtype bfloat16,
+    after two unprofiled ones."""
+    from tcam_wsol_video_tpu_torch.ops import crf
+    (_, model, _, state, train_step, _, batch, gen,
+     switches) = build_main_path(seed, production=True, dtype="bfloat16")
+    with fused_landmarks(False), CrfTimer(
+            crf, "gaussian_filter_apply_landmarks") as timer:
+        run_steps(train_step, state, batch, switches, gen, 2, timer,
+                  "path B bfloat16")
+        prof = profile_step(train_step, state, batch, switches, gen,
+                            "path B bfloat16")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return prof
 
 
 def phase_post_process(args, model, batch) -> dict:
@@ -900,6 +980,8 @@ def report_trainer(tag: str, out: dict, epochs: int) -> dict:
 
     train = out["records"]["train"]
     evals = out["records"]["eval"]
+    print(f"[{tag}] compute_dtype {out['args'].compute_dtype}, "
+          f"eval_compute_dtype {out['args'].eval_compute_dtype}", flush=True)
     check(len(train) == epochs and all(r["steps"] == 5 for r in train),
           f"{tag}: steps per epoch {[r['steps'] for r in train]}, not 5")
     t = 1.0
@@ -951,12 +1033,14 @@ def phase_trainer(seed: int, data: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = cli_train.main(path_d_flags(root, os.path.join(root, "cams"),
-                                      os.path.join(root, "exps")))
+    with conv_weight_dtypes() as seen:
+        out = cli_train.main(path_d_flags(root, os.path.join(root, "cams"),
+                                          os.path.join(root, "exps")))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_counts()
 
+    convs = check_conv_dtypes("path D", seen, {"bfloat16", "float32"})
     rep = report_trainer("path D", out, PATH_D_EPOCHS)
     steps = rep["steps"]
     k = launches["bilateral_exact"]["kernel"]
@@ -971,8 +1055,8 @@ def phase_trainer(seed: int, data: dict) -> dict:
           f" s), peak {peak:.2f} GiB", flush=True)
     return {"wall_s": wall_s, "gen_s": data["gen_s"], "store_s": store_s,
             "jpeg_round_trip_mean_abs": data["jpeg_round_trip_mean_abs"],
-            "launches": launches, "steps": steps, "train":
-            out["records"]["train"], "eval": out["records"]["eval"],
+            "launches": launches, "steps": steps, "conv_dtypes": convs,
+            "train": out["records"]["train"], "eval": out["records"]["eval"],
             "test_best_loc": rep["best"], "peak_mem_gib": peak}
 
 
@@ -980,8 +1064,10 @@ def phase_trainer(seed: int, data: dict) -> dict:
 def check_dump_route(data: dict, dump_args, s1_dir: str) -> dict:
     """The dump's pixels on the card (nvJPEG, then Pillow's bilinear
     arithmetic) against the source frames through the same resize on the
-    CPU; and one dump batch's CAMs on the card against the port's CPU run
-    on the same pixels and weights."""
+    CPU; one dump batch's CAMs on the card against the port's CPU run on
+    the same pixels and weights, both at float32 (`dump_args`); and the
+    same batch on the card at the dump's default bfloat16 against the
+    card's float32."""
     from tcam_wsol_video_tpu_torch.cli import dump_cams as cli_dump
     from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
     from tcam_wsol_video_tpu_torch.data.transforms import \
@@ -1010,23 +1096,31 @@ def check_dump_route(data: dict, dump_args, s1_dir: str) -> dict:
                                   torch.device("cuda"))
     labels = torch.tensor([lab for _, lab in chunk])
     cams = {}
-    for dev in ("cuda", "cpu"):
-        model, _, _ = cli_dump.load_classifier(dump_args, s1_dir,
-                                               torch.device(dev))
-        step = cli_dump.make_dump_step(model, dump_args, 28)
+    for dev, args in (("cuda", dump_args), ("cpu", dump_args),
+                      ("cuda bf16", dump_args.replace(
+                          compute_dtype="bfloat16"))):
+        device = torch.device(dev.split()[0])
+        model, _, _ = cli_dump.load_classifier(args, s1_dir, device)
+        step = cli_dump.make_dump_step(model, args, 28)
         t0 = time.perf_counter()
-        cams[dev] = step(pixels.to(dev), labels.to(dev)).cpu()
+        cams[dev] = step(pixels.to(device), labels.to(device)).cpu()
         print(f"[path E dump] one batch of {len(chunk)} CAMs on {dev}: "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         del model
     err = (cams["cuda"] - cams["cpu"]).abs().max().item()
-    print(f"[path E dump] CAMs card (TF32 convolutions) vs CPU (fp32): "
-          f"max |difference| {err:.3e} (tol {CAM_TF32_ATOL})", flush=True)
+    print(f"[path E dump] CAMs card (fp32, TF32 convolutions) vs CPU (fp32):"
+          f" max |difference| {err:.3e} (tol {CAM_TF32_ATOL})", flush=True)
     check(err <= CAM_TF32_ATOL, f"path E: the card's CAMs are {err:.3e} off "
           "the CPU's")
+    err16 = (cams["cuda bf16"] - cams["cuda"]).abs().max().item()
+    print(f"[path E dump] CAMs card bf16 vs card fp32: max |difference| "
+          f"{err16:.3e} (tol {CAM_BF16_ATOL})", flush=True)
+    check(err16 <= CAM_BF16_ATOL, f"path E: the card's bf16 CAMs are "
+          f"{err16:.3e} off its fp32 ones")
     torch.cuda.empty_cache()
     return {"pixel_route_mean_abs": errs, "cam_card_vs_cpu_max_abs": err,
-            "cam_atol": CAM_TF32_ATOL}
+            "cam_atol": CAM_TF32_ATOL, "cam_bf16_vs_fp32_max_abs": err16,
+            "cam_bf16_atol": CAM_BF16_ATOL}
 
 
 def phase_chain(seed: int, data: dict) -> dict:
@@ -1051,19 +1145,25 @@ def phase_chain(seed: int, data: dict) -> dict:
     reset_counts()
     t_chain = time.perf_counter()
 
+    convs = {}
     # stage 1
     t0 = time.perf_counter()
-    s1 = cli_train.main(path_e_stage1_flags(root, outd))
+    with conv_weight_dtypes() as seen:
+        s1 = cli_train.main(path_e_stage1_flags(root, outd))
     torch.cuda.synchronize()
     s1_s = time.perf_counter() - t0
+    convs["stage1"] = check_conv_dtypes("path E stage 1", seen,
+                                        {"bfloat16", "float32"})
     rep1 = report_trainer("path E stage 1", s1, PATH_E_EPOCHS)
     print(f"[path E stage 1] cli/train.main {s1_s:.2f} s", flush=True)
 
     # the handoff
     dump_flags = common_flags(root) + ["--task", "STD_CL", "--exp_dir",
                                        s1["outd"], "--out", store_dir]
-    dump = cli_dump.main(dump_flags)
+    with conv_weight_dtypes() as seen:
+        dump = cli_dump.main(dump_flags)
     torch.cuda.synchronize()
+    convs["dump"] = check_conv_dtypes("path E dump", seen, {"bfloat16"})
     store = CamStore(store_dir)
     th = store.thresholds or {}
     cams_ok = all(
@@ -1084,7 +1184,8 @@ def phase_chain(seed: int, data: dict) -> dict:
           f"CAMs 28 x 28 in [0, 1]: {cams_ok}")
     route = check_dump_route(data, stage1_cam_recipe(
         crop_size=224, resize_size=256, data_root=root,
-        metadata_root=os.path.join(root, "folds"), seed=seed), s1["outd"])
+        metadata_root=os.path.join(root, "folds"), seed=seed,
+        compute_dtype="float32"), s1["outd"])
 
     # stage 2, from stage 1's best-classification encoder and head; its
     # own random weights come from another seed, so they equal stage 1's
@@ -1106,14 +1207,17 @@ def phase_chain(seed: int, data: dict) -> dict:
     cli_train.load_pretrained_classifier_weights = spy
     try:
         t0 = time.perf_counter()
-        s2 = cli_train.main(path_d_flags(root, store_dir, outd,
-                                         pretrained=s1["outd"],
-                                         seed=SEED + 1))
+        with conv_weight_dtypes() as seen:
+            s2 = cli_train.main(path_d_flags(root, store_dir, outd,
+                                             pretrained=s1["outd"],
+                                             seed=SEED + 1))
         torch.cuda.synchronize()
         s2_s = time.perf_counter() - t0
     finally:
         cli_train.load_pretrained_classifier_weights = load
     launches = read_counts()
+    convs["stage2"] = check_conv_dtypes("path E stage 2", seen,
+                                        {"bfloat16", "float32"})
     cl_step, snap = ckpt.load_best_model(os.path.join(s1["outd"],
                                                       constants.BEST_CL))
     want = {(c, n): snap["components"][c][n] for c, n in held}
@@ -1142,11 +1246,14 @@ def phase_chain(seed: int, data: dict) -> dict:
 
     # standalone evaluation of stage 2's best-localization snapshot
     t0 = time.perf_counter()
-    ev = cli_eval.main(common_flags(root) + [
-        "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size", "32",
-        "--exp_dir", s2["outd"], "--split", "test"])
+    with conv_weight_dtypes() as seen:
+        ev = cli_eval.main(common_flags(root) + [
+            "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size",
+            "32", "--exp_dir", s2["outd"], "--split", "test"])
     torch.cuda.synchronize()
     ev_s = time.perf_counter() - t0
+    convs["evaluate"] = check_conv_dtypes("path E evaluate", seen,
+                                          {"float32"})
     after = read_counts()
     check(after == launches, f"path E: evaluate launched kernels: {after}")
     want = rep2["best"]
@@ -1178,7 +1285,7 @@ def phase_chain(seed: int, data: dict) -> dict:
                        "train": s2["records"]["train"],
                        "eval": s2["records"]["eval"],
                        "test_best_loc": want},
-            "evaluate": dict(ev),
+            "evaluate": dict(ev), "conv_dtypes": convs,
             "evaluate_gap": gaps, "peak_mem_gib": peak}
 
 
@@ -1207,14 +1314,16 @@ def phase_recompute(seed: int, data: dict, s1_outd: str) -> dict:
     port_steps.tcam_seeder = spy
     try:
         t0 = time.perf_counter()
-        out = cli_train.main(path_d_flags(
-            root, "", os.path.join(root, "exps_f"), pretrained=s1_outd,
-            seed=SEED + 2, epochs=1, use_roi=False, exp_id="f"))
+        with conv_weight_dtypes() as conv_seen:
+            out = cli_train.main(path_d_flags(
+                root, "", os.path.join(root, "exps_f"), pretrained=s1_outd,
+                seed=SEED + 2, epochs=1, use_roi=False, exp_id="f"))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     finally:
         port_steps.tcam_seeder = seeder
     launches = read_counts()
+    convs = check_conv_dtypes("path F", conv_seen, {"bfloat16", "float32"})
     rep = report_trainer("path F", out, 1)
     steps = rep["steps"]
     cam_max = torch.stack(seen).cpu() if seen else torch.zeros(0)
@@ -1235,7 +1344,7 @@ def phase_recompute(seed: int, data: dict, s1_outd: str) -> dict:
     check(all(c["plain"] == 0 for c in launches.values()),
           "path F: a plain version ran")
     return {"wall_s": wall_s, "seeder_step": out["seeder_step"],
-            "launches": launches, "steps": steps,
+            "launches": launches, "steps": steps, "conv_dtypes": convs,
             "cam_max_min": cam_max.min().item(),
             "train": out["records"]["train"], "eval": out["records"]["eval"],
             "test_best_loc": rep["best"],
@@ -1244,14 +1353,14 @@ def phase_recompute(seed: int, data: dict, s1_outd: str) -> dict:
 
 # ------------------------------------------------------------ TF32 vs fp32
 def phase_tf32_gap(seed: int, tf32_steps: list) -> dict:
-    """The main path runs its cuDNN convolutions in TF32.  Rebuild the
+    """Path A at float32 runs its cuDNN convolutions in TF32.  Rebuild the
     same starting state, run two steps with every convolution in full
-    fp32, and hold the first step's loss terms against the main path's
-    first step (same weights, batch and seeder noise)."""
+    fp32, and hold the first step's loss terms against that path's first
+    step (same weights, batch and seeder noise)."""
     torch.backends.cudnn.allow_tf32 = False
     try:
         (_, _, _, state, train_step, _, batch, gen,
-         switches) = build_main_path(seed)
+         switches) = build_main_path(seed, dtype="float32")
         recs = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1279,6 +1388,58 @@ def phase_tf32_gap(seed: int, tf32_steps: list) -> dict:
     for k, rel in gap.items():
         check(rel <= TF32_RTOL, f"TF32 step-0 {k} is {rel:.3e} off fp32")
     return {"fp32_steps": recs, "rel_gap": gap, "rtol": TF32_RTOL}
+
+
+def phase_bf16_gap(bf16_steps: list, fp32_steps: list) -> dict:
+    """Path A's first bf16 step against the first full-fp32 step of the
+    TF32 gap: the same weights, batch and seeder noise, only the compute
+    dtype differs.  Each loss term within BF16_RTOL of fp32, and the total
+    within BF16_RTOL of the sum of the terms' magnitudes (the terms cancel
+    in the total: 0.72 - 0.48 - 0.10)."""
+    ref = fp32_steps[0]
+    terms = [k for k in ref if k not in ("step_ms", "n", "n_correct",
+                                         "loss")]
+    gap = {}
+    for k in ["loss"] + terms:
+        v, got = ref[k], bf16_steps[0][k]
+        scale = (sum(abs(ref[t]) for t in terms) if k == "loss"
+                 else abs(v))
+        gap[k] = abs(got - v) / max(scale, 1e-30) if got != v else 0.0
+        print(f"[bf16] step 0 {k}: fp32={v:.8e} bf16={got:.8e} "
+              f"rel={gap[k]:.3e} (tol {BF16_RTOL}"
+              + (", of the terms' magnitudes)" if k == "loss" else ")"),
+              flush=True)
+    for k, rel in gap.items():
+        check(rel <= BF16_RTOL, f"bf16 step-0 {k} is {rel:.3e} off fp32")
+    return {"rel_gap": gap, "rtol": BF16_RTOL}
+
+
+@contextlib.contextmanager
+def conv_weight_dtypes():
+    """Counts, by dtype, the weights that the port's convolutions hand to
+    cuDNN inside the block (the models' compute dtype at work)."""
+    from tcam_wsol_video_tpu_torch.models import resnet
+    seen = {}
+    orig = resnet.Conv2d._conv_forward
+
+    def counted(self, x, weight, bias):
+        name = str(weight.dtype).replace("torch.", "")
+        seen[name] = seen.get(name, 0) + 1
+        return orig(self, x, weight, bias)
+
+    resnet.Conv2d._conv_forward = counted
+    try:
+        yield seen
+    finally:
+        resnet.Conv2d._conv_forward = orig
+
+
+def check_conv_dtypes(tag: str, seen: dict, want: set) -> dict:
+    """`seen` (conv_weight_dtypes) holds exactly the dtypes `want`."""
+    print(f"[{tag}] convolution weights by dtype: {seen}", flush=True)
+    check(set(seen) == want, f"{tag}: convolutions ran in {sorted(seen)}, "
+          f"expected {sorted(want)}")
+    return dict(seen)
 
 
 # --------------------------------------------------------- CRF loss parity
@@ -1580,8 +1741,13 @@ def main(argv=None) -> int:
     result["bit_equal"] = check_bit_equal(SEED)
     result["checks"] += phase_landmark_checks(SEED)
     result["nystrom_bit_equal"] = check_nystrom_bit_equal(SEED)
-    result["main_path"] = phase_main_path(SEED, STEPS, a.profile)
-    result["tf32_gap"] = phase_tf32_gap(SEED, result["main_path"]["steps"])
+    result["main_path"] = phase_main_path(SEED, STEPS, a.profile, "bfloat16")
+    result["main_path_fp32"] = phase_main_path(SEED, STEPS, a.profile,
+                                               "float32")
+    result["tf32_gap"] = phase_tf32_gap(SEED,
+                                        result["main_path_fp32"]["steps"])
+    result["bf16_gap"] = phase_bf16_gap(result["main_path"]["steps"],
+                                        result["tf32_gap"]["fp32_steps"])
     result["crf_parity"] = phase_crf_parity(SEED)
     result["production"] = phase_production(SEED, STEPS, a.profile)
     result["crf_landmark_parity"] = phase_landmark_parity(SEED)
@@ -1651,11 +1817,16 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({**result, "kernels": kernels}, f, indent=1)
-    mp = result["main_path"]
-    print(f"[summary] path A: median step {mp['median_step_ms']:.2f} ms, "
-          f"CRF kernel in step {mp['median_crf_kernel_ms']:.2f} ms, peak "
-          f"{mp['peak_mem_gib']:.2f} GiB", flush=True)
-    print(f"[summary] path B: median step {prod['median_step_ms']:.2f} ms, "
+    for mp in (result["main_path"], result["main_path_fp32"]):
+        print(f"[summary] path A {mp['dtype']}: median step "
+              f"{mp['median_step_ms']:.2f} ms, CRF kernel in step "
+              f"{mp['median_crf_kernel_ms']:.2f} ms, eval "
+              f"{mp['eval_ms']:.2f} ms, peak {mp['peak_mem_gib']:.2f} GiB",
+              flush=True)
+    print(f"[summary] bf16 gap (path A step 0, bf16 vs fp32): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in result["bf16_gap"]["rel_gap"].items())
+        + f" (tol {BF16_RTOL})", flush=True)
+    print(f"[summary] path B float32: median step {prod['median_step_ms']:.2f} ms, "
           f"landmark CRF in step {prod['median_crf_ms']:.2f} ms, peak "
           f"{prod['peak_mem_gib']:.2f} GiB; fused route median step "
           f"{prod['fused_step_ms']:.2f} ms, CRF {prod['fused_crf_ms']:.2f} "

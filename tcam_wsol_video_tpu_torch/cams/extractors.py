@@ -30,9 +30,13 @@ def _finalize(cam: torch.Tensor) -> torch.Tensor:
 def _weighted_cam(feats: torch.Tensor, weights: torch.Tensor
                   ) -> torch.Tensor:
     """sum_k w_k A_k over channels with nansum semantics: a NaN weight
-    drops its channel.  feats (B, C, h, w), weights (B, C) -> (B, h, w)."""
+    drops its channel.  feats (B, C, h, w), weights (B, C) -> (B, h, w),
+    in the promoted dtype of the two (bf16 features and fp32 weights give
+    fp32, as in JAX)."""
+    dtype = torch.promote_types(feats.dtype, weights.dtype)
     weights = weights.masked_fill(weights.isnan(), 0.0)
-    return _finalize(torch.einsum("bchw,bc->bhw", feats, weights))
+    return _finalize(torch.einsum("bchw,bc->bhw", feats.to(dtype),
+                                  weights.to(dtype)))
 
 
 def cam_fc_weights(feats: torch.Tensor, fc_weight: torch.Tensor,

@@ -11,6 +11,8 @@ its eval_checkpoint_type snapshot: the whole frame resized to crop x crop
 with Pillow's bilinear arithmetic (data/transforms.py; libjpeg decode on
 the CPU, nvJPEG on the card), normalized, and its CAM for the shot's
 label resized on the device to cam_size x cam_size and clipped to [0, 1].
+The classifier computes in --compute_dtype (default bfloat16, as the JAX
+dump builds its model); its fc-weight CAMs come out in float32.
 The store gets one .npy per frame and roi_thresholds.txt (`dump_threshold_np`
 of each CAM).  The host stores batch i and takes its thresholds while
 batch i + 1 computes.  It runs on the card unless --device cpu is given;

@@ -9,7 +9,8 @@ one process).
 It loads the eval_checkpoint_type snapshot of --exp_dir into the model of
 --task, runs the split through the evaluator (the CAM of each image, the
 host box sweep, MaxBoxAcc at each IoU threshold, top-1 classification)
-and prints the numeric results as one JSON object.  It runs on the card
+at --eval_compute_dtype (default float32) and prints the numeric results
+as one JSON object.  It runs on the card
 unless --device cpu is given; without CUDA it raises.
 """
 from __future__ import annotations

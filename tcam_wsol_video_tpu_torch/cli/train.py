@@ -17,7 +17,10 @@ validation, the epochs, model selection and the test split at the best
 snapshots.  TCAM with sl_tc and no --std_cams_folder recomputes its seed
 CAMs every step from a frozen stage-1 classifier: the encoder and head of
 the folder's tcam_pretrained_seeder_ch_pt snapshot, or random weights
-without a folder, as the JAX CLI does.  It runs on the card unless
+without a folder, as the JAX CLI does.  The train steps (and the seeder
+classifier) compute in --compute_dtype (default bfloat16), validation and
+the test passes in --eval_compute_dtype (default float32); parameters,
+gradients and checkpoints stay float32.  It runs on the card unless
 --device cpu is given; without CUDA it raises.
 """
 from __future__ import annotations
@@ -157,7 +160,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Returns {'test': {snapshot: results}, 'records': per-epoch train
     and per-pass eval records, 'outd': the experiment folder,
     'seeder_step': the step of the seeder classifier's snapshot (None
-    when no CAMs are recomputed, or its weights are random)}."""
+    when no CAMs are recomputed, or its weights are random), 'args': the
+    finalized config}."""
     extra = argparse.ArgumentParser(add_help=False)
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
@@ -183,7 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     with open(os.path.join(trainer.outd, "passed.txt"), "w") as f:
         f.write("done\n")
     return {"test": results, "records": trainer.records,
-            "outd": trainer.outd, "seeder_step": seeder_step}
+            "outd": trainer.outd, "seeder_step": seeder_step, "args": args}
 
 
 if __name__ == "__main__":

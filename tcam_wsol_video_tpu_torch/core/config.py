@@ -21,6 +21,10 @@ from typing import List, Optional, Sequence
 
 from tcam_wsol_video_tpu_torch.core import constants
 
+# the choices of compute_dtype and eval_compute_dtype (the JAX model
+# factory's table)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
 
 def get_root_datasets_dir() -> str:
     return os.environ.get("TCAM_TPU_DATA_ROOT",
@@ -49,6 +53,11 @@ class TCAMConfig:
     checkpoint_save: int = 100
     keep_last_n_checkpoints: int = 1
     log_every: int = 10
+    # dtype policy: fp32 parameters; the train step, the dump and the
+    # frozen seeder classifier compute in compute_dtype, evaluation in
+    # eval_compute_dtype (models/factory.py DTYPES)
+    compute_dtype: str = "bfloat16"
+    eval_compute_dtype: str = "float32"
     # eval
     cam_curve_interval: float = 0.001
     multi_contour_eval: bool = True
@@ -250,6 +259,10 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
         raise ValueError(f"dataset {args.dataset!r} is not ported")
     if args.spatial_pooling not in constants.SPATIAL_POOLINGS:
         raise ValueError(f"spatial_pooling {args.spatial_pooling!r}")
+    for key in ("compute_dtype", "eval_compute_dtype"):
+        if getattr(args, key) not in COMPUTE_DTYPES:
+            raise ValueError(f"{key} must be one of {COMPUTE_DTYPES}, got "
+                             f"{getattr(args, key)!r}")
     if args.task == constants.STD_CL:
         if args.arch != constants.STDCLASSIFIER:
             raise ValueError("STD_CL trains the STDClassifier arch")

@@ -2,6 +2,13 @@
 engine/steps.py: their branches of make_train_step and
 make_cam_eval_step, and make_classifier_cam_fn).
 
+The train step, the frozen classifier's CAMs (seeds without a store, the
+dump) and the eval step run their model at args.compute_dtype,
+args.compute_dtype and args.eval_compute_dtype: the dtypes at which the
+JAX package builds each of these models.  The losses cast to fp32 where
+JAX's do (the CE, the CRF's filter inputs, the ELB); the size prior sums
+the compute-dtype probabilities in their own dtype.
+
 Batches are dicts of tensors on the step's device in the JAX layout:
 image (B, H, W, 3) normalized, label (B,); for TCAM also raw_img
 (B, H, W, 3) in [0, 255], std_cam (B, H, W), roi (B, H, W); optional
@@ -19,6 +26,7 @@ from tcam_wsol_video_tpu_torch.cams.seeding import TCAMSeederCfg, tcam_seeder
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
+from tcam_wsol_video_tpu_torch.models.factory import DTYPES
 from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 
@@ -46,6 +54,7 @@ def make_train_step(master_loss: MasterLoss, args,
         raise ValueError("seed CAMs are recomputed only for TCAM with sl_tc")
     cam_fn = (make_classifier_cam_fn(classifier_model, args)
               if classifier_model is not None else None)
+    dtype = DTYPES[args.compute_dtype]
 
     def train_step(state: TrainState, batch, switches: Sequence[float],
                    seed_weighted: bool,
@@ -66,7 +75,7 @@ def make_train_step(master_loss: MasterLoss, args,
                                 gumbel=gumbel)
 
         model.train()
-        out = model(batch["image"])
+        out = model(batch["image"], dtype)
         logits = out["cl_logits"]
         if std_cl:
             inputs = LossInputs(epoch=state.epoch, cl_logits=logits,
@@ -124,13 +133,14 @@ def make_cam_eval_step(model, args):
     std_cl = args.task == constants.STD_CL
     crop = args.crop_size
     use_crf_pp = bool(args.crf_post_process)
+    dtype = DTYPES[args.eval_compute_dtype]
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor,
                   raw_images: Optional[torch.Tensor] = None,
                   targets: Optional[torch.Tensor] = None):
         model.eval()
-        out = model(images)
+        out = model(images, dtype)
         if std_cl:
             cam = _classifier_cam(out, model, targets, args)
         else:
@@ -153,12 +163,15 @@ def make_cam_eval_step(model, args):
 def make_classifier_cam_fn(classifier_model, args):
     """Returns cam_fn(images, targets) -> (B, h, w) CAMs of the frozen
     stage-1 classifier at its last feature's resolution, nan-guarded (the
-    CAM store's dump, and seeds recomputed without a store)."""
+    CAM store's dump, and seeds recomputed without a store).  The
+    classifier runs at args.compute_dtype; its features times the fp32 fc
+    weights give fp32 CAMs."""
+    dtype = DTYPES[args.compute_dtype]
 
     @torch.no_grad()
     def cam_fn(images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         classifier_model.eval()
-        out = classifier_model(images)
+        out = classifier_model(images, dtype)
         cam = _classifier_cam(out, classifier_model, targets, args)
         return torch.nan_to_num(cam, nan=0.0, posinf=1.0, neginf=0.0)
 

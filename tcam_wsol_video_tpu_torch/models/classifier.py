@@ -2,8 +2,9 @@
 models/classifier.py), NCHW inside.
 
 Encoder + pooling head on the last feature.  forward takes NHWC images
-and returns cl_logits (B, K), cams_head (None for WGAP, which builds no
-maps) and the encoder features (NCHW).  The submodules are named
+and the compute dtype (models/resnet.py) and returns cl_logits (B, K),
+cams_head (None for WGAP, which builds no maps) and the encoder features
+(NCHW), all in that dtype.  The submodules are named
 `encoder` and `classification_head` as in UnetTCAM, so stage 2 loads
 them from a stage-1 snapshot, and models/transplant.py maps the flax tree
 onto them by name.
@@ -25,8 +26,9 @@ class STDClassifier(nn.Module):
         self.classification_head = build_pooling_head(
             pooling, encoder.out_channels[-1], classes)
 
-    def forward(self, x: torch.Tensor) -> dict:
-        features = self.encoder(x.permute(0, 3, 1, 2))
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> dict:
+        features = self.encoder(x.permute(0, 3, 1, 2), dtype)
         cl_logits, cams_head = self.classification_head(features[-1])
         return {"cl_logits": cl_logits, "cams_head": cams_head,
                 "features": features}

@@ -1,5 +1,10 @@
 """Model factory (port of models/factory.py): STDClassifier (STD_CL) and
-UnetTCAM (TCAM) on ResNet-50."""
+UnetTCAM (TCAM) on ResNet-50.
+
+The models hold fp32 parameters and take their compute dtype with each
+forward (models/resnet.py), so one model serves the train step at
+compute_dtype and the evaluator at eval_compute_dtype; DTYPES maps the
+config's names to torch dtypes."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +14,8 @@ from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.models.classifier import STDClassifier
 from tcam_wsol_video_tpu_torch.models.resnet import resnet50_wsol
 from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def create_model(task: str, encoder_name: str = constants.RESNET50,

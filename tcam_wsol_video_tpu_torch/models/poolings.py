@@ -8,15 +8,17 @@ import torch
 from torch import nn
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.models.resnet import Linear
 
 
 class WGAP(nn.Module):
-    """Global average pool then linear — the original CAM head.  Returns
-    (logits, None): WGAP builds no CAM itself."""
+    """Global average pool then linear — the original CAM head, in the
+    dtype of its input.  Returns (logits, None): WGAP builds no CAM
+    itself."""
 
     def __init__(self, in_channels: int, classes: int):
         super().__init__()
-        self.fc = nn.Linear(in_channels, classes)
+        self.fc = Linear(in_channels, classes)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

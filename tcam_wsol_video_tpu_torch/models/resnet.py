@@ -5,6 +5,15 @@ stride 8, 28x28 maps at 224 px) returning all six stage features.
 Submodule names follow the flax tree (`conv1`, `bn1`, `layer1_0`, ...,
 `downsample_conv`, `downsample_bn`) so models/transplant.py maps the JAX
 parameters by name.
+
+Compute dtype, as flax's `dtype=` on every layer: the parameters stay
+fp32; a convolution or dense layer casts its kernel and bias to its
+input's dtype and returns that dtype; BatchNorm reduces its statistics
+and normalizes in fp32 and returns its input's dtype.  So the dtype of
+the image given to `forward` (cast there) runs through every layer.
+
+Random weights follow flax's defaults: convolution and dense kernels
+lecun_normal, biases zero, BatchNorm scale 1 and bias 0.
 """
 from __future__ import annotations
 
@@ -15,8 +24,53 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# the std of a unit normal truncated at +-2 (jax.nn.initializers.
+# variance_scaling's correction for its truncated_normal)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default kernel initializer: a normal truncated at two of its
+    standard deviations, with variance 1 / fan_in after the truncation.
+    (torch's default, uniform with variance 1 / (3 fan_in), would start a
+    random-weight run at 1/sqrt(3) of the JAX package's weight scale.)"""
+    std = (1.0 / weight[0].numel()) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype (fp32 parameters), with
+    flax's initialization."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype (fp32 parameters), with
+    flax's initialization."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's running-statistics update.
+
+    The statistics, the running buffers and the normalization are fp32
+    whatever the input's dtype (torch's mixed-dtype batch norm, as flax's
+    force_float32_reductions); the output is rounded once to the input's
+    dtype.
 
     flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) folds the *biased*
     batch variance into `var`; torch's BatchNorm2d folds the unbiased one
@@ -48,9 +102,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1,
-         bias: bool = False) -> nn.Conv2d:
+         bias: bool = False) -> Conv2d:
     """flax nn.Conv with symmetric `padding=k // 2`."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
 
 class Bottleneck(nn.Module):
@@ -83,13 +137,14 @@ class Bottleneck(nn.Module):
 class ResNetWSOL(nn.Module):
     """ResNet-50/101/152 with the WSOL stride pattern.
 
-    forward(x NCHW) returns [x, stem, layer1, layer2, layer3, layer4].
+    forward(x NCHW, dtype) returns [x, stem, layer1, layer2, layer3,
+    layer4]: x as given, the stages computed in `dtype`.
     """
     out_channels = (3, 64, 256, 512, 1024, 2048)
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = conv(3, 64, 7, stride=2)
         self.bn1 = BatchNorm2d(64)
         # WSOL strides: no downsampling in layer3 and layer4
         plan = [(64, 1, "layer1"), (128, 2, "layer2"), (256, 1, "layer3"),
@@ -106,9 +161,10 @@ class ResNetWSOL(nn.Module):
                 names.append(f"{lname}_{i}")
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
         feats = [x]
-        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn1(self.conv1(x.to(dtype))))
         feats.append(y)
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         for names in self.stages:

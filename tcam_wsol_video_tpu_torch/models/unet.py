@@ -3,8 +3,10 @@
 Encoder + classification head on the last feature + U-Net decoder
 (nearest x2 upsample, align_corners bilinear snap to the skip resolution
 on mismatch, concat, two Conv3x3+BN+ReLU) + 2-channel segmentation head
-upsampled to the input size.  forward takes NHWC images and returns
-cl_logits (B, K), fcams (B, H, W, 2) and the encoder features (NCHW).
+upsampled to the input size.  forward takes NHWC images and the compute
+dtype (models/resnet.py) and returns cl_logits (B, K), fcams (B, H, W, 2)
+and the encoder features (NCHW), all in that dtype: the decoder, the
+segmentation head and the final upsample follow their inputs' dtype.
 
 freeze_cl: the encoder and head run without autograd and keep their BN
 in inference mode (the JAX model's stop_gradient + enc_train=False); the
@@ -111,11 +113,12 @@ class UnetTCAM(nn.Module):
             self.classification_head.eval()
         return self
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> dict:
         x_nchw = x.permute(0, 3, 1, 2)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_cl):
-            features: List[torch.Tensor] = self.encoder(x_nchw)
+            features: List[torch.Tensor] = self.encoder(x_nchw, dtype)
             cl_logits, _ = self.classification_head(features[-1])
         fcams = self.segmentation_head(self.decoder(features))
         if tuple(fcams.shape[-2:]) != tuple(x.shape[1:3]):

@@ -219,3 +219,57 @@ def test_std_cl_eval_step_on_the_card_matches_cpu(card):
     assert (cams_c.cpu() - cams).abs().max() <= CAM_TF32_ATOL
     assert (logits_c.cpu() - logits).abs().max() <= \
         TF32_RTOL * logits.abs().max()
+
+
+def test_bf16_tcam_step_on_the_card(card, monkeypatch):
+    """One stage-2 step at the default compute dtype (bfloat16) on the
+    card: every convolution hands cuDNN bf16 inputs and weights, the
+    exact CRF kernel (fp32 inputs, as JAX casts them) launches once, no
+    plain version runs, and the parameters and their gradients stay
+    fp32."""
+    from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
+    from tcam_wsol_video_tpu_torch.core.config import stage2_tcam_recipe
+    from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
+    from tcam_wsol_video_tpu_torch.engine.state import TrainState
+    from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
+    from tcam_wsol_video_tpu_torch.losses.build import get_loss_tcam
+    from tcam_wsol_video_tpu_torch.models import resnet
+    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+    args = stage2_tcam_recipe(crop_size=64, batch_size=2)
+    assert args.compute_dtype == "bfloat16"
+    torch.manual_seed(0)
+    model = UnetTCAM(resnet.ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10,
+                     freeze_cl=True).to(card)
+    state = TrainState(model, build_optimizer(args, model, args.lr),
+                       args.elb_init_t)
+    master = get_loss_tcam(args)
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {"image": torch.randn((2, 64, 64, 3), generator=g, device=card),
+             "raw_img": torch.rand((2, 64, 64, 3), generator=g,
+                                   device=card) * 255.0,
+             "label": torch.tensor([1, 4], device=card),
+             "std_cam": torch.rand((2, 64, 64), generator=g, device=card),
+             "roi": torch.ones((2, 64, 64), dtype=torch.int32, device=card)}
+    seen = set()
+    conv = resnet.Conv2d._conv_forward
+
+    def spy(self, x, weight, bias):
+        seen.add((x.dtype, weight.dtype, weight.device.type))
+        return conv(self, x, weight, bias)
+
+    monkeypatch.setattr(resnet.Conv2d, "_conv_forward", spy)
+    counters = (bilateral.counts, landmarks.knm_counts, landmarks.rhs_counts,
+                landmarks.out_counts)
+    for c in counters:
+        c.reset()
+    met = make_train_step(master, args, seeder_cfg_from_args(args))(
+        state, batch, master.switches(0), True,
+        generator=torch.Generator(device=card).manual_seed(1))
+    torch.cuda.synchronize()
+    assert seen == {(torch.bfloat16, torch.bfloat16, "cuda")}
+    assert bilateral.counts.kernel == 1
+    assert all(c.plain == 0 for c in counters)
+    assert all(bool(torch.isfinite(v).all()) for v in met.values())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters()
+               if p.grad is not None)

@@ -131,7 +131,8 @@ def dumped(tmp_path_factory, monkeypatch_module):
     rec = dump_cams.main([
         "--task", "STD_CL", "--data_root", root, "--metadata_root",
         out["metadata_root"], "--crop_size", str(CROP), "--exp_dir", texp,
-        "--out", os.path.join(root, "tstore"), "--device", "cpu"])
+        "--out", os.path.join(root, "tstore"), "--device", "cpu",
+        "--compute_dtype", "float32"])
     return {"jstore": CamStore(os.path.join(root, "jstore")),
             "tstore": CamStore(os.path.join(root, "tstore")), "rec": rec}
 

@@ -83,3 +83,33 @@ def test_transplant_covers_every_tensor(setup):
     fc = variables["params"]["classification_head"]["fc"]["kernel"]
     np.testing.assert_array_equal(
         tm.classification_head.fc.weight.detach().numpy(), fc.T)
+
+
+def test_random_init_follows_flax(setup):
+    """A model built with random weights draws them as the flax init of
+    the same model: convolution and dense kernels lecun_normal (a normal
+    truncated at two standard deviations, variance 1 / fan_in), biases
+    zero, BatchNorm scale 1 and bias 0."""
+    from tcam_wsol_video_tpu_torch.models.resnet import ResNetWSOL
+    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+    from torch_port_fixtures import CLASSES, LAYERS
+    _, variables = setup[False]
+    want = flax_to_state_dict({"params": variables["params"]})
+    torch.manual_seed(0)
+    sd = UnetTCAM(ResNetWSOL(layers=LAYERS), "WGAP", CLASSES).state_dict()
+    assert set(want) <= set(sd)
+    n_kernels = 0
+    for k, w in want.items():
+        got = sd[k].numpy()
+        if got.ndim == 1:
+            np.testing.assert_array_equal(got, w, err_msg=k)
+            continue
+        n_kernels += 1
+        n = got.size
+        sigma = (1.0 / got[0].size) ** 0.5
+        bound = 2.0 * sigma / 0.87962566103423978
+        for x in (got, w):
+            assert np.abs(x).max() <= bound * (1 + 1e-6), k
+            # the sample std of n draws: 6 standard errors
+            assert abs(x.std() / sigma - 1.0) <= 6.0 / np.sqrt(2 * n), k
+    assert n_kernels > 20

@@ -52,14 +52,15 @@ B = 2
 
 
 def _recipe(use_roi: bool):
+    # fp32 on both sides (the bf16 policy is held in test_torch_dtype.py)
     return stage2_tcam_recipe(crop_size=CROP, batch_size=B,
-                              sl_tc_use_roi=use_roi)
+                              sl_tc_use_roi=use_roi,
+                              compute_dtype="float32")
 
 
 def _jax_args(targs):
     cfg = get_config(C.YTOV1)
     cfg.update(dict(targs.__dict__))
-    cfg["compute_dtype"] = "float32"
     return HParams(cfg)
 
 

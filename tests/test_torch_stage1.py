@@ -37,7 +37,7 @@ from tcam_wsol_video_tpu_torch.engine.steps import (make_cam_eval_step,
                                                     make_classifier_cam_fn,
                                                     make_train_step)
 from tcam_wsol_video_tpu_torch.losses.build import get_loss
-from tcam_wsol_video_tpu_torch.models import poolings
+from tcam_wsol_video_tpu_torch.models import factory, poolings
 from tcam_wsol_video_tpu_torch.models.factory import create_model_from_args
 from tcam_wsol_video_tpu_torch.models.transplant import flax_to_state_dict
 
@@ -56,13 +56,14 @@ B = 3
 
 
 def _recipe():
-    return stage1_cam_recipe(crop_size=CROP, batch_size=B, lr=0.01)
+    # fp32 on both sides (the bf16 policy is held in test_torch_dtype.py)
+    return stage1_cam_recipe(crop_size=CROP, batch_size=B, lr=0.01,
+                             compute_dtype="float32")
 
 
 def _jax_args(targs):
     cfg = get_config(C.YTOV1)
     cfg.update(dict(targs.__dict__))
-    cfg["compute_dtype"] = "float32"
     return HParams(cfg)
 
 
@@ -222,7 +223,11 @@ def stepped_n64(setup):
         tstate = TrainState(tm, build_optimizer(targs, tm, targs.lr),
                             targs.elb_init_t)
         tml = get_loss(targs)
-        tfn = make_train_step(tml, targs)
+        # the port's step computes in its config's dtype: float64 here, a
+        # name the config itself refuses
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(factory.DTYPES, "float64", torch.float64)
+            tfn = make_train_step(tml, targs.replace(compute_dtype="float64"))
         losses = []
         for i in range(N_STEPS):
             batch = _batch(20 + i)

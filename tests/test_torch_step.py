@@ -51,14 +51,18 @@ B = 2
 
 
 def _recipe():
-    return stage2_tcam_recipe(crop_size=CROP, batch_size=B)
+    # fp32 on both sides: the port's compute dtype here, JAX's through
+    # _jax_args (the bf16 policy is held in test_torch_dtype.py)
+    return stage2_tcam_recipe(crop_size=CROP, batch_size=B,
+                              compute_dtype="float32")
 
 
 def _production():
     """The production recipe (landmark CRF, 10/10 seeds) at the test's
     size; 256 landmarks on the 32 x 32 frame (the grid gives 256)."""
     return stage2_tcam_production(crop_size=CROP, batch_size=B,
-                                  crf_n_landmarks=256)
+                                  crf_n_landmarks=256,
+                                  compute_dtype="float32")
 
 
 def test_config_defaults_match_hparams():
@@ -68,9 +72,10 @@ def test_config_defaults_match_hparams():
 
 
 def _jax_args(targs=None):
+    """JAX's config of the port's `targs`: the same keys, so the same
+    compute dtypes."""
     cfg = get_config(C.YTOV1)
     cfg.update({k: v for k, v in (targs or _recipe()).__dict__.items()})
-    cfg["compute_dtype"] = "float32"
     return HParams(cfg)
 
 

@@ -19,9 +19,11 @@ CLASSES = 10
 CROP = 32
 
 
-def jax_model(freeze_cl: bool = True) -> JUnetTCAM:
-    return JUnetTCAM(encoder=JResNetWSOL(layers=LAYERS), pooling="WGAP",
-                     classes=CLASSES, freeze_cl=freeze_cl)
+def jax_model(freeze_cl: bool = True, dtype=jnp.float32) -> JUnetTCAM:
+    """The small UnetTCAM computing in `dtype` (fp32 parameters)."""
+    return JUnetTCAM(encoder=JResNetWSOL(layers=LAYERS, dtype=dtype),
+                     pooling="WGAP", classes=CLASSES, freeze_cl=freeze_cl,
+                     dtype=dtype)
 
 
 def jax_variables(model, seed: int = 0) -> dict:
@@ -41,9 +43,10 @@ def jax_variables(model, seed: int = 0) -> dict:
     return {"params": variables["params"], "batch_stats": stats}
 
 
-def jax_classifier() -> JSTDClassifier:
-    return JSTDClassifier(encoder=JResNetWSOL(layers=LAYERS), pooling="WGAP",
-                          classes=CLASSES)
+def jax_classifier(dtype=jnp.float32) -> JSTDClassifier:
+    """The small STDClassifier computing in `dtype` (fp32 parameters)."""
+    return JSTDClassifier(encoder=JResNetWSOL(layers=LAYERS, dtype=dtype),
+                          pooling="WGAP", classes=CLASSES, dtype=dtype)
 
 
 def torch_classifier(variables: dict) -> STDClassifier:
