@@ -15,14 +15,18 @@ A run writes the script's synthetic set with nvJPEG under build/dress/
      1000 seeds, the landmark CRF) over the dumped store, from stage 1's
      best-classification encoder and head;
   4. cli/evaluate.py at stage 2's best-localization snapshot on test:
-     once at the trainer's cam_curve_interval and eval batch, which must
-     equal the trainer's own test pass within one image, and once at
+     once at the trainer's cam_curve_interval and eval batch, held
+     against the trainer's own test pass (the gap recorded), and once at
      cam_curve_interval 0.001, the script's final number.
 Both stages share --seed, as in the script; the set is the same for
-every seed.  The script's --h2d_transfer uint8 --decode_cache_mb 768 are
-not ported and do not change the numerics; --num_workers 4 is kept.  The
-compute dtypes are the JAX defaults (bf16 train steps and dump, fp32
-eval) unless --compute_dtype says otherwise.
+every seed.  Every CLI gets the script's COMMON data flags: --h2d_transfer
+uint8 (uint8 pixels and packed CAM planes; the dump normalizes as the JAX
+dump does under it) and --decode_cache_mb 768 (decoded frames kept on the
+card across epochs); --num_workers 4 is kept.  As in JAX, cli/evaluate.py
+takes float pixels and no cache whatever those flags say, so its gap to
+the trainer's test pass (rounded pixels) is recorded, not assumed to be
+0.  The compute dtypes are the JAX defaults (bf16 train steps and dump,
+fp32 eval) unless --compute_dtype says otherwise.
 
 Each run prints its phases, writes chiprun_out/dress_<dtype>_seed<seed>.json
 and ends with one JSON line of its test MaxBoxAcc.  --summarize prints
@@ -50,6 +54,9 @@ DATA = dict(n_classes=10, n_videos_per_class=8, n_shots_per_video=5,
 EPOCHS = (10, 20)
 IOUS = (30, 50, 70)
 
+# the data flags of the script's COMMON line, for every CLI
+DATA_FLAGS = ["--h2d_transfer", "uint8", "--decode_cache_mb", "768",
+              "--num_workers", "4"]
 # the script's flags, stage by stage (paths, seed, sizes and epochs are
 # filled in by run())
 STAGE1_FLAGS = [
@@ -97,7 +104,9 @@ def _trainer_record(out: Dict, seconds: float) -> Dict:
         "seconds": seconds,
         "epochs": [{k: r[k] for k in (
             "epoch", "steps", "wall_ms", "median_step_ms",
-            "data_wait_ms_per_step", "loss", "classification")}
+            "data_wait_ms_per_step", "loss", "classification",
+            "data_route", "data_pixels_ms_per_step", "data_cams_ms_per_step",
+            "cache_hits", "cache_misses")}
             for r in train],
         "median_step_ms": statistics.median(r["median_step_ms"]
                                             for r in train),
@@ -117,7 +126,10 @@ def _print_trainer(tag: str, rec: Dict) -> None:
     for e in rec["epochs"]:
         print(f"[{tag} epoch {e['epoch']}] wall {e['wall_ms']:.1f} ms, "
               f"{e['steps']} steps, median step {e['median_step_ms']:.2f} "
-              f"ms, data wait {e['data_wait_ms_per_step']:.2f} ms/step; "
+              f"ms, data wait {e['data_wait_ms_per_step']:.2f} ms/step "
+              f"(pixels {e['data_pixels_ms_per_step']:.2f}, CAM side "
+              f"{e['data_cams_ms_per_step']:.2f}; {e['data_route']}, cache "
+              f"hits/misses {e['cache_hits']}/{e['cache_misses']}); "
               f"loss {e['loss']:.6g}, train classification "
               f"{e['classification']:.2f}", flush=True)
     for v in rec["val"]:
@@ -172,7 +184,7 @@ def run(seed: int, compute_dtype: str, workdir: str, device: str = "cuda",
     common = ["--dataset", "YouTube-Objects-v1.0", "--data_root", workdir,
               "--metadata_root", os.path.join(workdir, "folds"),
               "--crop_size", str(crop), "--resize_size", str(resize),
-              "--num_workers", "4", "--seed", str(seed), "--compute_dtype",
+              *DATA_FLAGS, "--seed", str(seed), "--compute_dtype",
               compute_dtype, "--device", device]
     t_chain = time.perf_counter()
 
@@ -237,7 +249,8 @@ def run(seed: int, compute_dtype: str, workdir: str, device: str = "cuda",
           + "/".join(f"{same[f'maxboxacc_{s}']:.2f}" for s in IOUS)
           + f", |evaluate - trainer| " + "/".join(
               f"{g:.4f}" for g in gap.values())
-          + f" (one image {one_image:.4f}): matches "
+          + f" (one image {one_image:.4f}; evaluate reads float pixels, "
+          f"the trainer's test pass rounded ones): within one image "
           f"{rec['evaluate']['matches_trainer']}", flush=True)
     print(f"[evaluate] at interval {FINAL_INTERVAL}: MaxBoxAcc "
           + "/".join(f"{final[f'maxboxacc_{s}']:.2f}" for s in IOUS)

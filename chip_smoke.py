@@ -63,7 +63,17 @@ Phases (any failure raises and the script exits non-zero):
      classifier of its best-localization snapshot (past step 0); the
      seeder must get non-zero CAMs every step and the exact CRF kernel
      must launch once per step; launch counts reset just before;
- 12. time each kernel (and the exact filter's per-call spread and
+ 12. path G (run right after path D, on its set and store), the train
+     data plane: cli/train.main with path D's flags plus --h2d_transfer
+     uint8 --decode_cache_mb 256 --train_device_cache_mb 256 for 4
+     epochs, launch counts reset just before: every epoch from the
+     card-resident feed, each sampled frame decoded once, the exact CRF
+     kernel once per step, libjpeg never loaded; then the feed's first
+     epoch-1 batch against the streamed route (ids and uint8 pixels
+     equal, the CAM side within JAX's tolerances);
+ 13. roi_batch (ROI_LARGEST, ROI_H_DENSITY) at batch 32 / 224 px on the
+     card against the host route roi_one_cam_np, timed;
+ 14. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -1060,6 +1070,203 @@ def phase_trainer(seed: int, data: dict) -> dict:
             "test_best_loc": rep["best"], "peak_mem_gib": peak}
 
 
+# ------------------------------------------ path G: the train data plane
+# the JAX package's train data plane (cli/train.py flags): uint8 batches,
+# the decoded-frame cache and the card-resident train feed, whose frames
+# pool for path D's 640 frames at 256 px is 126 MB
+PATH_G_FLAGS = ["--h2d_transfer", "uint8", "--decode_cache_mb", "256",
+                "--train_device_cache_mb", "256"]
+PATH_G_EPOCHS = 4
+# one epoch-1 batch of the feed against the streamed route with the
+# decoded-frame cache (JAX tests/test_device_feed.py's tolerances): the
+# streamed CAM is packed to uint16 (7.6e-6) after the host's float32
+# matrix resize, the feed's resizes on the card; ROI pixels on a
+# threshold may flip
+FEED_CAM_ATOL = 2e-4
+FEED_ROI_AGREE = 0.995
+FEED_FG_ATOL = 2e-3
+
+
+def check_feed_batch(args, device: torch.device) -> dict:
+    """The feed's first batch of epoch 1 against the streamed compact
+    route (nvJPEG into the decoded-frame cache on the card, the CAM side
+    on the host) for the same draws: ids, labels and uint8 pixels equal,
+    the CAM side within the tolerances above."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.engine.steps import expand_compact_batch
+
+    _, feed_pipe, _ = cli_train.build_data(args, KeyChain(args.seed), device)
+    _, stream_pipe, _ = cli_train.build_data(
+        args.replace(train_device_cache_mb=0), KeyChain(args.seed), device)
+    check(feed_pipe.data_route == "device_feed"
+          and stream_pipe.data_route == "stream",
+          f"path G check: routes {feed_pipe.data_route}, "
+          f"{stream_pipe.data_route}")
+    bd = next(iter(feed_pipe.epoch(1)))
+    bs = next(iter(stream_pipe.epoch(1)))
+    check(bd["image_id"] == bs["image_id"], "path G: the feed's epoch-1 "
+          "batch holds other frames than the streamed route's")
+    for k in ("raw_u8", "label", "valid", "seq_iter", "frm_iter"):
+        check(torch.equal(bd[k], bs[k]), f"path G: the feed's {k} differs "
+              "from the streamed route's")
+    exp = expand_compact_batch(bs)
+    cam_err = (bd["std_cam"] - exp["std_cam"]).abs().max().item()
+    roi_agree = (bd["roi"] == exp["roi"]).float().mean().item()
+    fg_err = (bd["fg_size"] - bs["fg_size"]).abs().max().item()
+    print(f"[path G check] epoch-1 batch of {len(bd['image_id'])} frames: "
+          f"ids, labels and uint8 pixels equal to the streamed route's; "
+          f"std_cam max |diff| {cam_err:.3e} (tol {FEED_CAM_ATOL}), ROI "
+          f"pixels agree {100 * roi_agree:.3f}% (at least "
+          f"{100 * FEED_ROI_AGREE}%), fg_size max |diff| {fg_err:.3e} (tol "
+          f"{FEED_FG_ATOL})", flush=True)
+    check(cam_err <= FEED_CAM_ATOL, f"path G: std_cam {cam_err:.3e} off")
+    check(roi_agree >= FEED_ROI_AGREE, f"path G: ROI agrees {roi_agree}")
+    check(fg_err <= FEED_FG_ATOL, f"path G: fg_size {fg_err:.3e} off")
+    del feed_pipe, stream_pipe
+    torch.cuda.empty_cache()
+    return {"std_cam_max_abs": cam_err, "roi_agree": roi_agree,
+            "fg_size_max_abs": fg_err}
+
+
+def phase_feed(seed: int, data: dict) -> dict:
+    """Path G: cli/train.main with path D's flags and PATH_G_FLAGS for
+    PATH_G_EPOCHS epochs over path D's stand-in store, counts reset just
+    before: the train epochs come from the card-resident feed (every
+    epoch's data_route), each sampled frame is decoded once, the exact CRF
+    kernel launches once a step; then one epoch-1 batch against the
+    streamed route."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core.config import parse_args
+    from tcam_wsol_video_tpu_torch.data import native_loader
+    from tcam_wsol_video_tpu_torch.data import pipeline as port_pipeline
+
+    root = data["root"]
+    flags = path_d_flags(root, os.path.join(root, "cams"),
+                         os.path.join(root, "exps_g"), epochs=PATH_G_EPOCHS,
+                         exp_id="g") + PATH_G_FLAGS
+    feeds = []
+    base = port_pipeline.DeviceTrainFeed
+
+    class Spy(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            feeds.append(self)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    port_pipeline.DeviceTrainFeed = Spy
+    try:
+        t0 = time.perf_counter()
+        out = cli_train.main(flags)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        port_pipeline.DeviceTrainFeed = base
+    launches = read_counts()
+    rep = report_trainer("path G", out, PATH_G_EPOCHS)
+    steps = rep["steps"]
+    train = out["records"]["train"]
+    for r in train:
+        print(f"[path G epoch {r['epoch']}] route {r['data_route']}, data "
+              f"wait {r['data_wait_ms_per_step']:.2f} ms/step (pool fill "
+              f"{r['data_pixels_ms_per_step']:.2f}, plan "
+              f"{r['data_plan_ms']:.2f} ms in the epoch), pool misses "
+              f"{r['pool_misses']}, decodes {r['pool_decodes']}, assembly "
+              f"{r['data_assembly_ms_per_step']:.3f} ms/step (CUDA events), "
+              f"median step {r['median_step_ms']:.2f} ms", flush=True)
+        check(r["data_route"] == "device_feed", f"path G epoch {r['epoch']}"
+              f": data route {r['data_route']}")
+    feed = [f for f in feeds if f.enabled]
+    check(len(feed) == 1, f"path G: {len(feed)} enabled train feeds")
+    feed = feed[0]
+    decodes = sum(r["pool_decodes"] for r in train)
+    sampled = int(feed.resident.sum())
+    print(f"[path G] frames pool {feed.frames_pool.numel() / 2 ** 20:.1f} MiB for "
+          f"{len(feed.frames)} frames; {sampled} distinct frames sampled in "
+          f"{PATH_G_EPOCHS} epochs, {decodes} decodes, at most "
+          f"{int(feed.decodes.max())} a frame", flush=True)
+    check(int(feed.decodes.max()) == 1 and decodes == sampled
+          == int(feed.decodes.sum()), "path G: a sampled frame was decoded "
+          "more than once, or not counted")
+    k = launches["bilateral_exact"]["kernel"]
+    print(f"[path G launches] bilateral_exact {k} in {steps} steps; "
+          f"{launches}; cli/train.main {wall_s:.2f} s", flush=True)
+    check(k == steps, f"path G: the exact CRF kernel launched {k} times in "
+          f"{steps} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path G: a plain version ran")
+    check(native_loader._lib.cache_info().currsize == 0,
+          "path G: a card pipeline loaded the host's libjpeg route")
+    del feeds, feed
+    torch.cuda.empty_cache()
+    extra = argparse.ArgumentParser(add_help=False)
+    extra.add_argument("--device")
+    args, _ = parse_args(flags, extra)
+    batch_check = check_feed_batch(args, torch.device("cuda"))
+    return {"wall_s": wall_s, "launches": launches, "steps": steps,
+            "decodes": decodes, "sampled_frames": sampled,
+            "train": train, "eval": out["records"]["eval"],
+            "test_best_loc": rep["best"], "batch_check": batch_check,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ROI pixels of the card's roi_batch against the host route (scipy labels,
+# float64 densities) on blobs that the 128 propagation steps cover: they
+# differ only where an Otsu histogram edge or a density near-tie falls
+# apart in float32
+ROI_AGREE = 0.999
+
+
+def roi_cams(rng: np.random.Generator, b: int, size: int) -> np.ndarray:
+    """1-4 Gaussian blobs a map (sigma 4-14 px, so that each component's
+    in-component paths stay under 128 steps), max-normalized to [0, 1]."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    out = np.zeros((b, size, size), np.float32)
+    for i in range(b):
+        for _ in range(rng.integers(1, 5)):
+            cy, cx = rng.uniform(20, size - 20, 2)
+            sig = rng.uniform(4.0, 14.0)
+            out[i] = np.maximum(out[i], rng.uniform(0.3, 1.0) * np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig * sig)))
+        out[i] /= out[i].max()
+    return out
+
+
+def phase_roi(seed: int, b: int = 32, size: int = 224) -> dict:
+    """roi_batch of ROI_LARGEST and ROI_H_DENSITY on the card (Otsu
+    thresholds, min-propagation labels, 64 component slots) against
+    roi_one_cam_np on the host, at the feed's shapes, and timed."""
+    from tcam_wsol_video_tpu_torch.cams.roi import roi_batch, roi_one_cam_np
+    from tcam_wsol_video_tpu_torch.core import constants
+
+    cams = roi_cams(np.random.default_rng(seed + 5), b, size)
+    dev = torch.from_numpy(cams).cuda()
+    out = {}
+    for method in (constants.ROI_LARGEST, constants.ROI_H_DENSITY):
+        roi, mask, box = (t.cpu().numpy() for t in roi_batch(dev, method))
+        t0 = time.perf_counter()
+        host = [roi_one_cam_np(c, method) for c in cams]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        agree = float(np.mean([(roi[i] == h[0]).mean()
+                               for i, h in enumerate(host)]))
+        same = sum(bool((roi[i] == h[0]).all() and (box[i] == h[2]).all()
+                        and (mask[i] == h[1]).all())
+                   for i, h in enumerate(host))
+        ms = cuda_time_ms(lambda: roi_batch(dev, method), reps=10)
+        print(f"[roi] {method} at B={b}, {size}x{size}: card "
+              f"{ms:.3f} ms a batch (CUDA events), host route "
+              f"{host_ms:.1f} ms; ROI pixels agree {100 * agree:.4f}% (at "
+              f"least {100 * ROI_AGREE}%), {same}/{b} maps equal in ROI, "
+              f"box and mask", flush=True)
+        check(agree >= ROI_AGREE, f"roi {method}: the card's ROI agrees "
+              f"{agree} with the host route's")
+        out[method] = {"ms": ms, "host_ms": host_ms, "agree": agree,
+                       "maps_equal": same}
+    return out
+
+
 # -------------------------------------------- path E: the two-stage chain
 def check_dump_route(data: dict, dump_args, s1_dir: str) -> dict:
     """The dump's pixels on the card (nvJPEG, then Pillow's bilinear
@@ -1753,10 +1960,12 @@ def main(argv=None) -> int:
     result["crf_landmark_parity"] = phase_landmark_parity(SEED)
     data = make_trainer_set(SEED)
     result["trainer"] = phase_trainer(SEED, data)
+    result["feed"] = phase_feed(SEED, data)
     result["chain"] = phase_chain(SEED, data)
     result["recompute"] = phase_recompute(SEED, data,
                                           result["chain"]["stage1_outd"])
     shutil.rmtree(data["root"])
+    result["roi"] = phase_roi(SEED)
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
     # the single-image function (the B = 1 case), off the main path
@@ -1788,6 +1997,8 @@ def main(argv=None) -> int:
         "launches_path_a": result["main_path"]["launches"]["kernel"],
         "launches_path_f": result["recompute"]["launches"][
             "bilateral_exact"]["kernel"],
+        "launches_path_g": result["feed"]["launches"]["bilateral_exact"][
+            "kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -1809,7 +2020,9 @@ def main(argv=None) -> int:
             "replaces": "tcam_wsol_video_tpu/ops/pallas/landmarks.py:" + {
                 "knm_build": "248", "nystrom_rhs": "137",
                 "nystrom_out": "170"}[name],
-            "launches": launches, "max_abs_err": max_err(name),
+            "launches": launches,
+            "launches_path_g": result["feed"]["launches"][name]["kernel"],
+            "max_abs_err": max_err(name),
             "ms": lmk[f"{key}_ms"], "plain_ms": lmk[f"{key}_plain_ms"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
             "library_ms": None})
@@ -1856,6 +2069,20 @@ def main(argv=None) -> int:
           f"{ch['stage2']['test_best_loc']['maxboxacc_50']:.2f} (evaluate "
           f"{ch['evaluate']['maxboxacc_50']:.2f}); the chain "
           f"{ch['wall_s']:.1f} s", flush=True)
+    pg = result["feed"]
+    print(f"[summary] path G (uint8, decode cache, card-resident feed): "
+          f"{pg['steps']} steps in {PATH_G_EPOCHS} epochs, median step "
+          f"{per_epoch(pg['train'], 'median_step_ms')} ms, data wait "
+          f"{per_epoch(pg['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"assembly {per_epoch(pg['train'], 'data_assembly_ms_per_step')} "
+          f"ms/step, pool decodes "
+          + "/".join(str(r["pool_decodes"]) for r in pg["train"])
+          + f" ({pg['decodes']} for {pg['sampled_frames']} sampled frames),"
+          f" test MaxBoxAcc@50 {pg['test_best_loc']['maxboxacc_50']:.2f}; "
+          f"cli/train.main {pg['wall_s']:.1f} s", flush=True)
+    print("[summary] roi_batch at B=32, 224x224: " + ", ".join(
+        f"{m} {r['ms']:.3f} ms (host route {r['host_ms']:.1f} ms)"
+        for m, r in result["roi"].items()), flush=True)
     pf = result["recompute"]
     print(f"[summary] path F: seeds recomputed from stage 1's snapshot "
           f"(step {pf['seeder_step']}), median step "

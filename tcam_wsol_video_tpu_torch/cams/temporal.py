@@ -1,7 +1,11 @@
-"""DecayTemp, the epoch schedule of the CAM heating factor and the seed
-technique (port of cams/temporal.py DecayTemp).
+"""Temporal CAM fusion and its schedule (port of cams/temporal.py).
 
-The heat t anneals linearly from sl_tc_knn_t to sl_tc_min_t over
+`heat_cam` and `fuse_temporal_max` heat the stored CAMs of a frame's
+neighbours with exp((cam + 1e-6) t) / max and fuse them by elementwise
+max, batched on tensors (the card-resident train feed's fusion).
+
+DecayTemp is the epoch schedule of the CAM heating factor and the seed
+technique.  The heat t anneals linearly from sl_tc_knn_t to sl_tc_min_t over
 sl_tc_knn_epoch_switch_uniform epochs, and from that epoch on the seed
 technique is uniform; with the switch at -1 nothing decays.  The trainer
 sets the epoch, the dataset reads `t`.
@@ -10,7 +14,28 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from tcam_wsol_video_tpu_torch.core import constants
+
+
+def heat_cam(cam: torch.Tensor, t: float) -> torch.Tensor:
+    """exp((cam + 1e-6) t) / max over the last two axes; nan -> 0,
+    +inf -> 1, -inf -> 0."""
+    e = torch.exp((cam + 1e-6) * t)
+    e = e / e.amax((-2, -1), keepdim=True)
+    return torch.nan_to_num(e, nan=0.0, posinf=1.0, neginf=0.0)
+
+
+def fuse_temporal_max(cams: torch.Tensor, valid: torch.Tensor,
+                      t: float = 0.0) -> torch.Tensor:
+    """cams (B, T, H, W) neighbour stacks, valid (B, T) bool -> (B, H, W):
+    each valid CAM heated when t > 0, then the max over T; a row without
+    a valid CAM gives 0."""
+    h = heat_cam(cams, max(t, 1e-12)) if t > 0 else cams
+    h = torch.where(valid[..., None, None], h, float("-inf"))
+    out = h.amax(1)
+    return torch.where(torch.isfinite(out), out, 0.0)
 
 
 @dataclass

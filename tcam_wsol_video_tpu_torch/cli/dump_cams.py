@@ -9,7 +9,8 @@ a CAM store for stage 2 (port of cli/dump_cams.py).
 Every frame of every train shot goes through the stage-1 classifier at
 its eval_checkpoint_type snapshot: the whole frame resized to crop x crop
 with Pillow's bilinear arithmetic (data/transforms.py; libjpeg decode on
-the CPU, nvJPEG on the card), normalized, and its CAM for the shot's
+the CPU, nvJPEG on the card), normalized (in the JAX dump's order for
+--h2d_transfer: make_dump_step), and its CAM for the shot's
 label resized on the device to cam_size x cam_size and clipped to [0, 1].
 The classifier computes in --compute_dtype (default bfloat16, as the JAX
 dump builds its model); its fc-weight CAMs come out in float32.
@@ -38,6 +39,7 @@ from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
 from tcam_wsol_video_tpu_torch.data.transforms import (normalize_u8,
+                                                       normalize_u8_scaled,
                                                        pil_resize_frames)
 from tcam_wsol_video_tpu_torch.engine.steps import make_classifier_cam_fn
 from tcam_wsol_video_tpu_torch.metrics.otsu_np import otsu_np
@@ -95,12 +97,17 @@ def load_classifier(args: TCAMConfig, exp_dir: str, device: torch.device):
 
 def make_dump_step(model, args: TCAMConfig, cam_size: int):
     """dump_step(uint8 frames (B, crop, crop, 3), labels (B,)) -> CAMs
-    (B, cam_size, cam_size) in [0, 1] on the frames' device."""
+    (B, cam_size, cam_size) in [0, 1] on the frames' device.  The frames
+    are normalized as the JAX dump does under args.h2d_transfer: v / 255
+    then (v - mean) / std for float32, (v - 255 mean) / (255 std) for
+    uint8."""
     cam_fn = make_classifier_cam_fn(model, args)
+    normalize = (normalize_u8_scaled if args.h2d_transfer == "uint8"
+                 else normalize_u8)
 
     def dump_step(frames: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
-        cams = cam_fn(normalize_u8(frames), labels)
+        cams = cam_fn(normalize(frames), labels)
         cams = resize_bilinear(cams[..., None], (cam_size, cam_size),
                                align_corners=False)[..., 0]
         return cams.clamp(0.0, 1.0)

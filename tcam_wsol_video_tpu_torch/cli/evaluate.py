@@ -51,6 +51,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     kc = KeyChain(args.seed)
     ds = eval_dataset(args, kc, ns.split)
+    # as the JAX CLI: float32 batches whatever --h2d_transfer says, and no
+    # decoded-frame cache (one pass decodes each frame once); so under
+    # --h2d_transfer uint8 this sees the float pixels that the trainer's
+    # test pass sees rounded
     pipe = DataPipeline(ds, args.eval_batch_size, kc, shuffle=False,
                         device=device)
     model = create_model_from_args(args, device=device)

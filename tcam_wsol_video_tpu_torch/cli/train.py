@@ -80,7 +80,11 @@ def eval_dataset(args: TCAMConfig, kc: KeyChain, split: str, md=None
 
 def build_data(args: TCAMConfig, kc: KeyChain, device):
     """Returns (args with the resolved metadata root, train pipeline,
-    {split: (dataset, pipeline)} for val and test)."""
+    {split: (dataset, pipeline)} for val and test).  As in the JAX CLI,
+    --h2d_transfer uint8 packs the batches of every split,
+    --decode_cache_mb caches the decoded frames of every split, and
+    --train_device_cache_mb puts the train split's frames and CAMs on the
+    device (the eval splits stream)."""
     args = resolve_metadata_root(args)
     meta_root = args.metadata_root
     data_root = os.path.join(args.data_root, args.dataset)
@@ -97,8 +101,11 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
         sl_tc_knn_mode=args.sl_tc_knn_mode, use_roi=args.sl_tc_use_roi,
         roi_method=args.sl_tc_roi_method,
         p_min_area_roi=args.sl_tc_roi_min_size)
-    train_pipe = DataPipeline(train_ds, args.batch_size, kc, shuffle=True,
-                              device=device)
+    compact = args.h2d_transfer == "uint8"
+    train_pipe = DataPipeline(
+        train_ds, args.batch_size, kc, shuffle=True, compact=compact,
+        decode_cache_mb=args.decode_cache_mb,
+        train_device_cache_mb=args.train_device_cache_mb, device=device)
 
     eval_pipes = {}
     for split in (constants.VALIDSET, constants.TESTSET):
@@ -107,8 +114,9 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
             md = subsample_per_class(md, args.num_val_sample_per_class,
                                      kc.numpy_rng("val_subsample"))
         ds = eval_dataset(args, kc, split, md)
-        eval_pipes[split] = (ds, DataPipeline(ds, args.eval_batch_size, kc,
-                                              shuffle=False, device=device))
+        eval_pipes[split] = (ds, DataPipeline(
+            ds, args.eval_batch_size, kc, shuffle=False, compact=compact,
+            decode_cache_mb=args.decode_cache_mb, device=device))
     return args, train_pipe, eval_pipes
 
 

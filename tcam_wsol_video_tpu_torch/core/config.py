@@ -22,8 +22,9 @@ from typing import List, Optional, Sequence
 from tcam_wsol_video_tpu_torch.core import constants
 
 # the choices of compute_dtype and eval_compute_dtype (the JAX model
-# factory's table)
+# factory's table), and of h2d_transfer
 COMPUTE_DTYPES = ("float32", "bfloat16")
+H2D_TRANSFERS = ("float32", "uint8")
 
 
 def get_root_datasets_dir() -> str:
@@ -53,6 +54,13 @@ class TCAMConfig:
     checkpoint_save: int = 100
     keep_last_n_checkpoints: int = 1
     log_every: int = 10
+    # the train data plane (data/pipeline.py, data/device_feed.py):
+    # uint8 pixels and packed CAM/ROI planes over host -> device, the
+    # decoded-frame cache budget (MiB; 0 = off) and the card-resident
+    # train feed's frames-pool budget (MiB; 0 = off)
+    h2d_transfer: str = "float32"
+    decode_cache_mb: int = 0
+    train_device_cache_mb: int = 0
     # dtype policy: fp32 parameters; the train step, the dump and the
     # frozen seeder classifier compute in compute_dtype, evaluation in
     # eval_compute_dtype (models/factory.py DTYPES)
@@ -286,6 +294,11 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
                          "instant")
     if args.sl_tc_seed_tech not in constants.SEED_TECHS:
         raise ValueError(f"sl_tc_seed_tech {args.sl_tc_seed_tech!r}")
+    if args.sl_tc_roi_method not in constants.ROI_SELECT:
+        raise ValueError(f"sl_tc_roi_method {args.sl_tc_roi_method!r}")
+    if args.h2d_transfer not in H2D_TRANSFERS:
+        raise ValueError(f"h2d_transfer must be one of {H2D_TRANSFERS}, "
+                         f"got {args.h2d_transfer!r}")
     # a batch of B shots expands to B (2 knn_tc + 1) frames
     if args.task == constants.TCAM and args.knn_tc > 0:
         args = args.replace(

@@ -64,8 +64,12 @@ SEED_UNIFORM = "seed_uniform"
 SEED_WEIGHTED = "seed_weighted"
 SEED_TECHS = (SEED_UNIFORM, SEED_WEIGHTED)
 
-# ROI selection mode of the recipe
+# ROI selection: every blob, the densest component (the largest when it
+# is under p_min_area_roi of the image), or the largest component
 ROI_ALL = "roi_all"
+ROI_H_DENSITY = "roi_high_density"
+ROI_LARGEST = "roi_largest"
+ROI_SELECT = (ROI_ALL, ROI_H_DENSITY, ROI_LARGEST)
 
 # folds under the data root when --metadata_root is relative
 RELATIVE_META_ROOT = "folds/wsol-done-right-splits"

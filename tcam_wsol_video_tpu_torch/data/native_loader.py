@@ -1,8 +1,11 @@
 """ctypes binding of native/fastloader.cpp, the host image route: libjpeg
 decode, half-pixel bilinear resize, crop, flip and ImageNet normalization
 of a batch in one OpenMP call (port of data/native_loader.py, signatures
-of its load_batch); and a JPEG file's size from its header (the CAM
-dump's host route decodes each frame at its own size).
+of its load_batch); the decode to uint8 frames at resize resolution
+(`decode_resize_u8`) and `DecodedFrameCache`, an LRU of those frames that
+crops them with fastloader's crop_batch_u8; and a JPEG file's size from
+its header (the CAM dump's host route decodes each frame at its own
+size).
 
 The library is built from the checkout's native/fastloader.cpp with the
 JAX binding's g++ flags (core/nativebuild.py), so both packages decode the
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -35,6 +39,10 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _UP]
     lib.decode_resize_batch.restype = ctypes.c_int
+    lib.crop_batch_u8.argtypes = [
+        ctypes.POINTER(_UP), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _IP, _IP, _UP, _FP, _FP]
+    lib.crop_batch_u8.restype = None
     return lib
 
 
@@ -76,6 +84,78 @@ def decode_u8(paths: List[str], height: int, width: int) -> np.ndarray:
     if rc != 0:
         raise IOError(f"failed to decode {paths[rc - 1]}")
     return buf
+
+
+def decode_resize_u8(paths: List[str], resize: int) -> np.ndarray:
+    """Decode and resize to (N, resize, resize, 3) uint8, each value the
+    float resize rounded half up: the frames of the decoded-frame cache
+    and of the card-resident train feed's pool."""
+    return decode_u8(paths, resize, resize)
+
+
+class DecodedFrameCache:
+    """An LRU of decoded frames at resize resolution, uint8, across epochs
+    (port of data/native_loader.py DecodedFrameCache): a batch decodes
+    only the frames it misses, then crops, flips and normalizes all of
+    them from the cache.  A frame that appears twice in a batch is decoded
+    once and its bytes counted once; `hits` and `misses` count the frames
+    served (a duplicate of a missing frame is a miss too); eviction never
+    goes below the batch in flight.  Rounding the resize to uint8 changes
+    a float32 run's pixels by at most half a level.  The frames are numpy
+    arrays cropped by fastloader's crop_batch_u8 here;
+    nvjpeg_loader.DeviceFrameCache keeps them on the card."""
+
+    def __init__(self, budget_mb: int = 512):
+        self.budget = int(budget_mb) * (1 << 20)
+        self.frames: OrderedDict = OrderedDict()
+        self.bytes = 0
+        self.hits = 0
+        self.misses = 0
+
+    def _decode(self, paths: List[str], resize: int) -> list:
+        return [f.copy() for f in decode_resize_u8(paths, resize)]
+
+    def _crop(self, frames: list, resize: int, crop: int, xs, ys, flips):
+        n = len(frames)
+        srcs = (_UP * n)(*[f.ctypes.data_as(_UP) for f in frames])
+        xs = np.ascontiguousarray(xs, np.int32)
+        ys = np.ascontiguousarray(ys, np.int32)
+        flips = np.ascontiguousarray(flips, np.uint8)
+        out_norm = np.empty((n, crop, crop, 3), np.float32)
+        out_raw = np.empty((n, crop, crop, 3), np.float32)
+        _lib().crop_batch_u8(srcs, n, resize, resize, crop,
+                             xs.ctypes.data_as(_IP), ys.ctypes.data_as(_IP),
+                             flips.ctypes.data_as(_UP),
+                             out_norm.ctypes.data_as(_FP),
+                             out_raw.ctypes.data_as(_FP))
+        return out_norm, out_raw
+
+    def load_batch(self, paths: List[str], resize: int, crop: int,
+                   xs, ys, flips):
+        """load_batch's (normalized, raw) from the cache."""
+        n = len(paths)
+        missing: List[str] = []
+        seen = set()
+        for p in paths:
+            k = (p, resize)
+            if k in self.frames:
+                self.frames.move_to_end(k)
+                self.hits += 1
+            else:
+                self.misses += 1
+                if p not in seen:
+                    seen.add(p)
+                    missing.append(p)
+        if missing:
+            for p, frame in zip(missing, self._decode(missing, resize)):
+                self.frames[(p, resize)] = frame
+                self.bytes += frame.nbytes
+        # every frame of this batch was just touched: the LRU end holds it
+        while self.bytes > self.budget and len(self.frames) > n:
+            _, old = self.frames.popitem(last=False)
+            self.bytes -= old.nbytes
+        return self._crop([self.frames[(p, resize)] for p in paths], resize,
+                          crop, xs, ys, flips)
 
 
 # start-of-frame markers that carry the frame's size (not DHT C4, JPG C8

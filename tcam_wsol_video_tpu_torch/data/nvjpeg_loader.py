@@ -8,8 +8,11 @@ them, the same interpolation order, then crop, flip and (v / 255 - mean) /
 std.  It runs on any device, so the CPU tests hold it against fastloader.
 nvJPEG's decoder is not libjpeg's: its frames differ from the host route's
 by a few levels (chip_smoke.py holds both routes' round trips against the
-source frames).  `load_resized_u8` is the CAM dump's route: whole frames
-resized with Pillow's bilinear arithmetic (data/transforms.py).
+source frames).  `decode_resize_u8` is fastloader's decode_resize_batch on
+the card (the resize rounded half up to uint8), `crop_normalize_u8` its
+crop_batch_u8, and `DeviceFrameCache` the decoded-frame cache on the
+card.  `load_resized_u8` is the CAM dump's route: whole frames resized
+with Pillow's bilinear arithmetic (data/transforms.py).
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.data.transforms import pil_resize_frames
+from tcam_wsol_video_tpu_torch.data import native_loader
+from tcam_wsol_video_tpu_torch.data.transforms import (crop_flip,
+                                                       imagenet_stats,
+                                                       pil_resize_frames)
 from tcam_wsol_video_tpu_torch.ops.cuda import build
 
 _VP = ctypes.c_void_p
@@ -102,13 +107,9 @@ def _taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return i0, i1, (f - i0.astype(np.float32)).astype(np.float32)
 
 
-def resize_crop_normalize(frames: torch.Tensor, resize: int, crop: int,
-                          xs: Sequence[int], ys: Sequence[int],
-                          flips: Sequence[int]
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """frames (N, h, w, 3) uint8 -> (normalized, raw) (N, crop, crop, 3)
-    float32 on the frames' device: resize to (resize, resize), crop at
-    (ys[i], xs[i]), flip where flips[i]."""
+def resize_fastloader(frames: torch.Tensor, resize: int) -> torch.Tensor:
+    """frames (N, h, w, 3) uint8 -> (N, resize, resize, 3) float32, the
+    bilinear resize of fastloader.cpp, on the frames' device."""
     n, h, w, _ = frames.shape
     dev = frames.device
     y0, y1, wy = (torch.from_numpy(a).to(dev) for a in _taps(h, resize))
@@ -119,16 +120,33 @@ def resize_crop_normalize(frames: torch.Tensor, resize: int, crop: int,
     wx = wx[None, None, :, None]
     top = top[:, :, x0] + (top[:, :, x1] - top[:, :, x0]) * wx
     bot = bot[:, :, x0] + (bot[:, :, x1] - bot[:, :, x0]) * wx
-    resized = top + (bot - top) * wy[None, :, None, None]
-    raw = torch.stack([
-        resized[i, y:y + crop, x:x + crop].flip(1) if f
-        else resized[i, y:y + crop, x:x + crop]
-        for i, (x, y, f) in enumerate(zip(xs, ys, flips))]).contiguous()
-    mean = torch.tensor(constants.IMAGENET_MEAN, dtype=torch.float32,
-                        device=dev)
-    std = torch.tensor(constants.IMAGENET_STD, dtype=torch.float32,
-                       device=dev)
-    return (raw / 255.0 - mean) / std, raw
+    return top + (bot - top) * wy[None, :, None, None]
+
+
+def _normalize(raw: torch.Tensor) -> torch.Tensor:
+    """fastloader's (v / 255 - mean) / std in float32."""
+    mean, std = imagenet_stats(raw.device)
+    return (raw / 255.0 - mean) / std
+
+
+def resize_crop_normalize(frames: torch.Tensor, resize: int, crop: int,
+                          xs: Sequence[int], ys: Sequence[int],
+                          flips: Sequence[int]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """frames (N, h, w, 3) uint8 -> (normalized, raw) (N, crop, crop, 3)
+    float32 on the frames' device: resize to (resize, resize), crop at
+    (ys[i], xs[i]), flip where flips[i]."""
+    raw = crop_flip(resize_fastloader(frames, resize), crop, ys, xs, flips)
+    return _normalize(raw), raw
+
+
+def crop_normalize_u8(frames: torch.Tensor, crop: int, xs: Sequence[int],
+                      ys: Sequence[int], flips: Sequence[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fastloader's crop_batch_u8 on the frames' device: frames
+    (N, r, r, 3) uint8 -> (normalized, raw) (N, crop, crop, 3) float32."""
+    raw = crop_flip(frames, crop, ys, xs, flips).float()
+    return _normalize(raw), raw
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,6 +179,47 @@ def load_batch(paths: List[str], resize: int, crop: int,
     norm.record_stream(main)
     raw.record_stream(main)
     return norm, raw
+
+
+def decode_resize_u8(paths: List[str], resize: int, device="cuda"
+                     ) -> torch.Tensor:
+    """fastloader's decode_resize_batch on the card: each file decoded by
+    nvJPEG, resized with fastloader's taps and rounded half up (v + 0.5
+    truncated) -> (N, resize, resize, 3) uint8 on `device`.  Decoded on
+    the side stream of load_batch; the caller's stream waits for it."""
+    device = _cuda(device)
+    main = torch.cuda.current_stream(device)
+    with torch.cuda.stream(_side_stream(device)):
+        frames = [decode(p, device) for p in paths]
+        out = torch.empty((len(paths), resize, resize, 3), dtype=torch.uint8,
+                          device=device)
+        groups: dict = {}
+        for i, f in enumerate(frames):
+            groups.setdefault(tuple(f.shape), []).append(i)
+        for ids in groups.values():
+            v = resize_fastloader(torch.stack([frames[i] for i in ids]),
+                                  resize)
+            out[ids] = (v + 0.5).clamp_(max=255.0).to(torch.uint8)
+    main.wait_stream(_side_stream(device))
+    out.record_stream(main)
+    return out
+
+
+class DeviceFrameCache(native_loader.DecodedFrameCache):
+    """The decoded-frame cache on the card: the host cache's budget, dedup,
+    counting and eviction, with the frames in device memory, filled by
+    decode_resize_u8 and cropped by crop_normalize_u8."""
+
+    def __init__(self, budget_mb: int, device="cuda"):
+        super().__init__(budget_mb)
+        self.device = _cuda(device)
+
+    def _decode(self, paths: List[str], resize: int) -> list:
+        return [f.clone() for f in decode_resize_u8(paths, resize,
+                                                    self.device)]
+
+    def _crop(self, frames: list, resize: int, crop: int, xs, ys, flips):
+        return crop_normalize_u8(torch.stack(frames), crop, xs, ys, flips)
 
 
 def load_resized_u8(paths: List[str], size: Tuple[int, int],

@@ -10,6 +10,20 @@ the device's image route: libjpeg on the host for a CPU device
 (data/native_loader.py, bit-equal to the JAX package's native path),
 nvJPEG on the card for a CUDA device (data/nvjpeg_loader.py).  The CAM
 side stays host numpy with the image's crop and flip.
+
+The train data plane's three options (hparams h2d_transfer,
+decode_cache_mb, train_device_cache_mb):
+- compact (h2d_transfer=uint8): `compact_batch` packs each batch, raw_u8
+  (B, c, c, 3) uint8 in place of image and raw_img, std_cam_u16 uint16,
+  roi and msk_bbox uint8; the step unpacks it
+  (engine/steps.expand_compact_batch).  On the card the pixels are
+  rounded there and stay uint8; the host planes cross packed.
+- decode_cache_mb: frames decoded at resize resolution, rounded to uint8,
+  kept across epochs in an LRU (native_loader.DecodedFrameCache on the
+  host, nvjpeg_loader.DeviceFrameCache on the card).
+- train_device_cache_mb: the card-resident train feed
+  (data/device_feed.DeviceTrainFeed) serves the train epochs when the
+  frames pool fits the budget; `data_route` says which route ran.
 """
 from __future__ import annotations
 
@@ -22,6 +36,8 @@ import torch
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
+from tcam_wsol_video_tpu_torch.data.device_feed import DeviceTrainFeed
+from tcam_wsol_video_tpu_torch.data.transforms import to_device
 
 _STACK_KEYS = ("image", "label", "raw_img", "std_cam", "has_cam",
                "seq_iter", "frm_iter", "roi", "msk_bbox", "fg_size")
@@ -66,13 +82,36 @@ def pad_batch_by_tiling(batch: dict, target: int, clip_len: int = 1
     return out
 
 
+def compact_batch(batch: dict) -> dict:
+    """Pack a batch for h2d_transfer=uint8 (port of pipeline.compact_batch):
+    image is dropped (the step derives it from the pixels), raw_img
+    becomes raw_u8 (rounded half to even and clipped to [0, 255], uint8),
+    std_cam becomes std_cam_u16 (round(clip(cam, 0, 1) * 65535), uint16),
+    roi and msk_bbox become uint8.  Entries are numpy arrays or tensors;
+    the packed ones come back as tensors on their device."""
+    out = dict(batch)
+    out.pop("image", None)
+    raw = torch.as_tensor(out.pop("raw_img"))
+    out["raw_u8"] = torch.round(raw).clamp_(0.0, 255.0).to(torch.uint8)
+    if "std_cam" in out:
+        cam = torch.as_tensor(out.pop("std_cam"))
+        out["std_cam_u16"] = torch.round(cam.clamp(0.0, 1.0) * 65535.0).to(
+            torch.uint16)
+    for k in ("roi", "msk_bbox"):
+        if k in out:
+            out[k] = torch.as_tensor(out[k]).to(torch.uint8)
+    return out
+
+
 class DataPipeline:
     """Iterate the epoch batches of a WSOLVideoDataset on `device`."""
 
     def __init__(self, dataset: WSOLVideoDataset, batch_size: int,
                  keychain: KeyChain, shuffle: bool = True,
                  num_shards: int = 1, shard_index: int = 0,
-                 drop_remainder: bool = False, device="cuda"):
+                 drop_remainder: bool = False, compact: bool = False,
+                 decode_cache_mb: int = 0, train_device_cache_mb: int = 0,
+                 device="cuda"):
         self.ds = dataset
         self.batch_size = batch_size
         self.kc = keychain
@@ -81,10 +120,52 @@ class DataPipeline:
         self.shard_index = shard_index
         self.drop_remainder = drop_remainder
         self.device = torch.device(device)
-        # host ms per batch of the last epoch: the pixels (decode, resize,
-        # crop; on the card the host's part of it) and the CAM side
-        self.timing: Dict[str, List[float]] = {"pixels_ms": [],
-                                               "cams_ms": []}
+        self.compact = compact
+        self._decode_cache = None
+        if decode_cache_mb > 0:
+            self._decode_cache = (
+                native_loader.DecodedFrameCache(decode_cache_mb)
+                if self.device.type == "cpu"
+                else nvjpeg_loader.DeviceFrameCache(decode_cache_mb,
+                                                    self.device))
+        self._device_feed = None
+        if train_device_cache_mb > 0:
+            feed = DeviceTrainFeed(self, train_device_cache_mb)
+            self._device_feed = feed if feed.enabled else None
+        # ms per batch of the last epoch: the host's pixel work (decode,
+        # resize, crop; on the card the host's part of it; the feed's pool
+        # fill), the host CAM side, and the feed's assembly on the device
+        self.timing: Dict[str, List[float]] = {}
+        self._cache_seen = (0, 0)
+
+    @property
+    def data_route(self) -> str:
+        """'device_feed' when the card-resident feed serves the epochs,
+        else 'stream'."""
+        return "stream" if self._device_feed is None else "device_feed"
+
+    def epoch_stats(self) -> dict:
+        """The last epoch's data plane: its route, the mean ms per batch
+        of each `timing` entry (data_<name>_per_step), the feed's plan ms
+        (data_plan_ms, once an epoch), the decoded-frame
+        cache's hits and misses in the epoch and the feed's pool misses
+        (frames not resident when their step came) and decodes."""
+        feed = self._device_feed
+        timing = {"pixels_ms": [], "cams_ms": [], "assembly_ms": [],
+                  **(feed.timing if feed is not None else self.timing)}
+        out = {"data_route": self.data_route,
+               **{f"data_{k}_per_step": float(np.mean(v)) if v else 0.0
+                  for k, v in timing.items() if k != "plan_ms"},
+               "data_plan_ms": float(sum(timing.get("plan_ms", [])))}
+        cache = self._decode_cache
+        hits, misses = ((cache.hits, cache.misses) if cache is not None
+                        else (0, 0))
+        out["cache_hits"] = hits - self._cache_seen[0]
+        out["cache_misses"] = misses - self._cache_seen[1]
+        self._cache_seen = (hits, misses)
+        counts = (feed.counts if feed is not None
+                  else {"pool_misses": 0, "pool_decodes": 0})
+        return {**out, **counts}
 
     def _epoch_indices_valid(self, epoch: int,
                              subset: Optional[np.ndarray] = None):
@@ -113,10 +194,15 @@ class DataPipeline:
 
     def _load_pixels(self, paths, resize, crop, xs, ys, flips):
         if self.device.type == "cpu":
-            norm, raw = native_loader.load_batch(
-                paths, resize=resize, crop=crop, xs=np.asarray(xs),
-                ys=np.asarray(ys), flips=np.asarray(flips))
+            load = (native_loader.load_batch if self._decode_cache is None
+                    else self._decode_cache.load_batch)
+            norm, raw = load(paths, resize=resize, crop=crop,
+                             xs=np.asarray(xs), ys=np.asarray(ys),
+                             flips=np.asarray(flips))
             return torch.from_numpy(norm), torch.from_numpy(raw)
+        if self._decode_cache is not None:
+            return self._decode_cache.load_batch(paths, resize, crop, xs,
+                                                 ys, flips)
         return nvjpeg_loader.load_batch(paths, resize, crop, xs, ys, flips,
                                         self.device)
 
@@ -188,27 +274,26 @@ class DataPipeline:
             out = pad_batch_by_tiling(batch, target, clip_len)
             out["valid"][:n] &= np.repeat(shard_valid[s:s + len(chunk)],
                                           clip_len)
+            if self.compact:
+                out = compact_batch(out)
             yield self._to_device(out)
 
     def _to_device(self, batch: dict) -> dict:
         """Host arrays go to the card from pinned memory, asynchronously:
         a copy from pageable memory would wait for the work already queued
         on the stream (the previous train step)."""
-        out = {"image_id": batch["image_id"]}
-        for k, v in batch.items():
-            if k == "image_id":
-                continue
-            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t.to(self.device)
-        return out
+        return {k: v if k == "image_id" else to_device(v, self.device)
+                for k, v in batch.items()}
 
     def epoch(self, epoch: int, subset: Optional[np.ndarray] = None
               ) -> Iterator[dict]:
         """Batches of batch_size clips (batch_size * clip_len frames,
-        clip-major) on the pipeline's device."""
+        clip-major) on the pipeline's device: from the card-resident feed
+        when it is on, else streamed (packed when compact)."""
         self.ds.set_epoch(epoch)
+        if self._device_feed is not None:
+            yield from self._device_feed.epoch(epoch, subset)
+            return
         self.timing = {"pixels_ms": [], "cams_ms": []}
         idxs, shard_valid = self._epoch_indices_valid(epoch, subset)
         yield from self._epoch_native(epoch, idxs, shard_valid,

@@ -45,6 +45,35 @@ def _resize_cam(cam: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return mh @ cam @ mw.T
 
 
+def to_device(v, device: torch.device) -> torch.Tensor:
+    """A host array or sequence as a tensor on `device`; to the card from
+    pinned memory, asynchronously (a copy from pageable memory would wait
+    for the work already queued on the stream)."""
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        return v.to(device)
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def crop_flip(x: torch.Tensor, crop: int, ys, xs, flips, rows=None
+              ) -> torch.Tensor:
+    """The window of each map of x (N, r, r[, C]) at row ys[i], column
+    xs[i], mirrored left-right where flips[i] -> (B, crop, crop[, C]), as
+    one gather on x's device.  rows (B,) picks the maps (all N, in order,
+    when None)."""
+    dev = x.device
+    ys, xs, flips = (to_device(v, dev) for v in (ys, xs, flips))
+    ar = torch.arange(crop, device=dev)
+    r_idx = ys.long()[:, None] + ar
+    c_idx = xs.long()[:, None] + torch.where(flips.bool()[:, None],
+                                             crop - 1 - ar, ar)
+    n = (torch.arange(x.shape[0], device=dev) if rows is None
+         else to_device(rows, dev).long())
+    return x[n[:, None, None], r_idx[:, :, None], c_idx[:, None, :]]
+
+
 def normalize_imagenet(img: np.ndarray) -> np.ndarray:
     """(H, W, 3) float in [0, 1] -> normalized."""
     mean = np.asarray(IMAGENET_MEAN, np.float32)
@@ -52,13 +81,30 @@ def normalize_imagenet(img: np.ndarray) -> np.ndarray:
     return (img - mean) / std
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(device: torch.device, scale: float = 1.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) x scale as float32 tensors on `device`, computed in
+    float32 on the host and copied there once (a copy at every call would
+    make the host wait for the card's queue)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * scale
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32) * scale
+    return mean.to(device), std.to(device)
+
+
 def normalize_u8(img: torch.Tensor) -> torch.Tensor:
     """(..., 3) uint8 -> normalized float32, in the JAX dump's order:
     v / 255, then (v - mean) / std."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
+    mean, std = imagenet_stats(img.device)
     return (img.float() / 255.0 - mean) / std
+
+
+def normalize_u8_scaled(raw: torch.Tensor) -> torch.Tensor:
+    """Pixels in [0, 255] (uint8 or float) -> normalized float32 in the
+    h2d_transfer=uint8 order of the JAX steps and dump:
+    (v - 255 mean) / (255 std)."""
+    mean, std = imagenet_stats(raw.device, 255.0)
+    return (raw.to(torch.float32) - mean) / std
 
 
 _PIL_BITS = 22          # Pillow's PRECISION_BITS for 8-bit images

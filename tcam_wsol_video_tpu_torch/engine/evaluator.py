@@ -77,9 +77,12 @@ class CamEvaluator:
         t_start = time.perf_counter()
         for batch in self.pipe.epoch(0):
             t0 = time.perf_counter()
+            # a compact batch (h2d_transfer=uint8) holds uint8 pixels only:
+            # the step normalizes them and takes them as the raw image
             cams, logits = self.eval_step(
-                batch["image"], batch["raw_img"] if use_raw else None,
-                targets=batch["label"])
+                batch.get("raw_u8", batch.get("image")),
+                batch["raw_img"] if use_raw and "raw_img" in batch
+                else None, targets=batch["label"])
             cams_np = cams.float().cpu().numpy()
             logits_np = logits.float().cpu().numpy()
             forward_ms.append((time.perf_counter() - t0) * 1e3)

@@ -13,7 +13,10 @@ Batches are dicts of tensors on the step's device in the JAX layout:
 image (B, H, W, 3) normalized, label (B,); for TCAM also raw_img
 (B, H, W, 3) in [0, 255], std_cam (B, H, W), roi (B, H, W); optional
 valid (B,), msk_bbox (B, H, W), fg_size (B,), seq_iter (B,) and
-frm_iter (B,) for the losses that read them.
+frm_iter (B,) for the losses that read them.  A compact batch
+(h2d_transfer=uint8: raw_u8 in place of image and raw_img, std_cam_u16,
+uint8 roi and msk_bbox) is unpacked at the head of each train step
+(expand_compact_batch); the eval step takes uint8 images as well.
 """
 from __future__ import annotations
 
@@ -24,11 +27,38 @@ import torch
 from tcam_wsol_video_tpu_torch.cams import extractors as ex
 from tcam_wsol_video_tpu_torch.cams.seeding import TCAMSeederCfg, tcam_seeder
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.data.transforms import normalize_u8_scaled
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
 from tcam_wsol_video_tpu_torch.models.factory import DTYPES
 from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
+
+
+def expand_compact_batch(batch: dict) -> dict:
+    """The inverse of data/pipeline.compact_batch on the step's device:
+    raw_img = raw_u8 as float32, image = (raw - 255 mean) / (255 std),
+    std_cam = std_cam_u16 / 65535, roi int32 and msk_bbox float32.  A
+    batch without raw_u8 is returned as it is."""
+    if "raw_u8" not in batch:
+        return batch
+    batch = dict(batch)
+    raw = batch.pop("raw_u8").to(torch.float32)
+    batch["raw_img"] = raw
+    batch["image"] = normalize_u8_scaled(raw)
+    if "std_cam_u16" in batch:
+        # uint16 as its bits in int16, widened: no uint16 arithmetic; the
+        # divisor a device tensor, so that the card divides (by a Python
+        # number it multiplies by the reciprocal, an ulp off)
+        u16 = batch.pop("std_cam_u16").view(torch.int16).to(torch.int32)
+        batch["std_cam"] = ((u16 & 0xFFFF).to(torch.float32)
+                            / torch.full((), 65535.0, device=u16.device))
+    if batch.get("roi") is not None and batch["roi"].dtype == torch.uint8:
+        batch["roi"] = batch["roi"].to(torch.int32)
+    if (batch.get("msk_bbox") is not None
+            and batch["msk_bbox"].dtype == torch.uint8):
+        batch["msk_bbox"] = batch["msk_bbox"].to(torch.float32)
+    return batch
 
 
 def make_train_step(master_loss: MasterLoss, args,
@@ -61,6 +91,7 @@ def make_train_step(master_loss: MasterLoss, args,
                    generator: Optional[torch.Generator] = None,
                    gumbel: Optional[torch.Tensor] = None) -> dict:
         model, opt = state.model, state.optimizer
+        batch = expand_compact_batch(batch)
         if cam_fn is not None:
             batch = {**batch, "std_cam": recompute_seed_cams(
                 cam_fn, batch["image"], batch["label"])}
@@ -121,7 +152,9 @@ def _classifier_cam(out: dict, model, targets: torch.Tensor,
 
 def make_cam_eval_step(model, args):
     """Returns eval_step(images, raw_images=None, targets=None) ->
-    (cams (B, crop, crop) in [0, 1], cl_logits).  TCAM: the softmax
+    (cams (B, crop, crop) in [0, 1], cl_logits).  uint8 images
+    (h2d_transfer=uint8) are normalized as expand_compact_batch does, and
+    serve as raw_images when those are not given.  TCAM: the softmax
     foreground of the decoder output; STD_CL: the CAM method's map of
     class `targets` (the labels).  Then nan-guarded, resized to the crop
     (align_corners=False) and clipped.  With args.crf_post_process and
@@ -140,6 +173,11 @@ def make_cam_eval_step(model, args):
                   raw_images: Optional[torch.Tensor] = None,
                   targets: Optional[torch.Tensor] = None):
         model.eval()
+        if images.dtype == torch.uint8:
+            raw = images.to(torch.float32)
+            images = normalize_u8_scaled(raw)
+            if raw_images is None:
+                raw_images = raw
         out = model(images, dtype)
         if std_cl:
             cam = _classifier_cam(out, model, targets, args)

@@ -12,7 +12,9 @@ best-localization and best-classification snapshots; `fit` ends with a
 test evaluation at each.
 
 The host loop records per epoch the time blocked on the pipeline (data
-wait) and each step's time: on a CUDA device the span between CUDA events
+wait), the pipeline's own record of the epoch (its route, stream or the
+card-resident feed, and its timings and counts: DataPipeline.epoch_stats)
+and each step's time: on a CUDA device the span between CUDA events
 recorded before and after the step, on the CPU the host clock.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
 from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.core.clock import SpanClock
 from tcam_wsol_video_tpu_torch.core.config import experiment_tag
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
@@ -59,36 +62,6 @@ class PerformanceMeter:
             self.best_value = float(value)
             self.best_epoch = int(epoch)
         return better
-
-
-class _StepClock:
-    """Per-step times without a host sync on the card: CUDA events around
-    each step, read at the end of the epoch."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
-
-    def start(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-        return time.perf_counter()
-
-    def stop(self, begin) -> None:
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.marks.append((begin, e))
-        else:
-            self.marks.append((begin, time.perf_counter()))
-
-    def millis(self) -> List[float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.marks]
-        return [(b - a) * 1e3 for a, b in self.marks]
 
 
 class Trainer:
@@ -167,7 +140,7 @@ class Trainer:
 
         zero = torch.zeros((), device=self.device)
         tot_loss, n_corr, n = zero.clone(), zero.clone(), zero.clone()
-        clock = _StepClock(self.device)
+        clock = SpanClock(self.device)
         wait_ms: List[float] = []
         t_epoch = time.perf_counter()
         batches = iter(self.train_pipe.epoch(epoch))
@@ -214,9 +187,10 @@ class Trainer:
             # the last wait is the end of the epoch, not a step's
             "data_wait_ms_per_step": float(np.mean(wait_ms[:-1]))
             if i else 0.0,
-            # the host's share of it: pixels, then the CAM side
-            **{f"data_{k}_per_step": float(np.mean(v)) if v else 0.0
-               for k, v in self.train_pipe.timing.items()},
+            # the data plane: its route; the host's pixels and CAM side,
+            # the feed's assembly; cache hits and misses, pool misses and
+            # decodes
+            **self.train_pipe.epoch_stats(),
             "elb_t": self.state.elb_t, "lr": self.lr_fn(epoch),
             "heat_t": (self.decay_temp.t if self.decay_temp is not None
                        else 0.0),

@@ -3,7 +3,10 @@ ops/interpolate.py).
 
 The matrix builders are copied from the JAX package, so both packages
 resample with the same weights: exact torch align_corners conventions,
-including the fused nearest-then-bilinear decoder snap.  The public
+including the fused nearest-then-bilinear decoder snap.  Each matrix goes
+to a device once per dtype and is kept there (`_on`): a copy from host
+memory at every call would make the host wait for the work queued on the
+card.  The public
 functions take NHWC tensors like their JAX counterparts; `layout="nchw"`
 serves the models, which run NCHW inside.
 """
@@ -49,6 +52,23 @@ def _nearest_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=256)
+def _snap_matrix(n_in: int, mid: int, n_out: int,
+                 align_corners: bool) -> np.ndarray:
+    """nearest(n_in -> mid) then bilinear(mid -> n_out) as one matrix,
+    composed in fp64 before the cast (the JAX package's construction)."""
+    return (_linear_matrix(mid, n_out, align_corners).astype(np.float64)
+            @ _nearest_matrix(n_in, mid).astype(np.float64)
+            ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=512)
+def _on(device: torch.device, dtype: torch.dtype, build, *args
+        ) -> torch.Tensor:
+    """build(*args) as a `dtype` tensor on `device`, made once."""
+    return torch.as_tensor(build(*args), dtype=dtype, device=device)
+
+
 def _hw(x: torch.Tensor, layout: str):
     if layout == "nhwc":
         return x.shape[-3], x.shape[-2]
@@ -57,11 +77,12 @@ def _hw(x: torch.Tensor, layout: str):
     raise ValueError(layout)
 
 
-def _apply_separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray,
+def _apply_separable(x: torch.Tensor, build, args_h: tuple, args_w: tuple,
                      layout: str) -> torch.Tensor:
-    """mh @ x @ mw^T over the spatial axes of x."""
-    a = torch.as_tensor(mh, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(mw, dtype=x.dtype, device=x.device)
+    """mh @ x @ mw^T over the spatial axes of x, with mh = build(*args_h)
+    and mw = build(*args_w)."""
+    a = _on(x.device, x.dtype, build, *args_h)
+    b = _on(x.device, x.dtype, build, *args_w)
     if layout == "nhwc":
         y = torch.einsum("ph,...hwc->...pwc", a, x)
         return torch.einsum("qw,...pwc->...pqc", b, y)
@@ -77,9 +98,8 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False,
     h_in, w_in = _hw(x, layout)
     if (h_in, w_in) == (h_out, w_out):
         return x
-    return _apply_separable(x, _linear_matrix(h_in, h_out, align_corners),
-                            _linear_matrix(w_in, w_out, align_corners),
-                            layout)
+    return _apply_separable(x, _linear_matrix, (h_in, h_out, align_corners),
+                            (w_in, w_out, align_corners), layout)
 
 
 def resize_nearest(x: torch.Tensor, size, layout: str = "nhwc"
@@ -89,23 +109,18 @@ def resize_nearest(x: torch.Tensor, size, layout: str = "nhwc"
     h_in, w_in = _hw(x, layout)
     if (h_in, w_in) == (h_out, w_out):
         return x
-    return _apply_separable(x, _nearest_matrix(h_in, h_out),
-                            _nearest_matrix(w_in, w_out), layout)
+    return _apply_separable(x, _nearest_matrix, (h_in, h_out),
+                            (w_in, w_out), layout)
 
 
 def resize_nearest_then_bilinear(x: torch.Tensor, mid, size,
                                  align_corners: bool = True,
                                  layout: str = "nhwc") -> torch.Tensor:
     """Fused nearest(in->mid) then bilinear(mid->size) resize: one matrix
-    per axis, composed in fp64 before the cast (the JAX package's
-    construction, so both packages use identical weights)."""
+    per axis (_snap_matrix), so both packages use identical weights."""
     mid_h, mid_w = int(mid[0]), int(mid[1])
     h_out, w_out = int(size[0]), int(size[1])
     h_in, w_in = _hw(x, layout)
-    mh = (_linear_matrix(mid_h, h_out, align_corners).astype(np.float64)
-          @ _nearest_matrix(h_in, mid_h).astype(np.float64)
-          ).astype(np.float32)
-    mw = (_linear_matrix(mid_w, w_out, align_corners).astype(np.float64)
-          @ _nearest_matrix(w_in, mid_w).astype(np.float64)
-          ).astype(np.float32)
-    return _apply_separable(x, mh, mw, layout)
+    return _apply_separable(x, _snap_matrix,
+                            (h_in, mid_h, h_out, align_corners),
+                            (w_in, mid_w, w_out, align_corners), layout)

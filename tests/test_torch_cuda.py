@@ -273,3 +273,72 @@ def test_bf16_tcam_step_on_the_card(card, monkeypatch):
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(p.grad.dtype == torch.float32 for p in model.parameters()
                if p.grad is not None)
+
+
+def test_card_decode_cache_and_u8_route(card, tmp_path):
+    """decode_resize_u8 on the card: fastloader's resize rounded half up,
+    against the same arithmetic on the CPU from the card's decoded frames;
+    the card's decoded-frame cache serves the same pixels as its frames
+    cropped on the CPU, with its hits and misses."""
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    from tcam_wsol_video_tpu_torch.data.synthetic import write_jpeg
+    rng = np.random.default_rng(1)
+    paths = []
+    for i in range(5):
+        img = (rng.random((90, 120, 3)) * 255).astype(np.uint8)
+        paths.append(str(tmp_path / f"f{i}.jpg"))
+        write_jpeg(paths[-1], img, card)
+    frames = torch.stack([nvjpeg_loader.decode(p, card).cpu()
+                          for p in paths])
+    want = (nvjpeg_loader.resize_fastloader(frames, 40) + 0.5).clamp(
+        max=255.0).to(torch.uint8)
+    got = nvjpeg_loader.decode_resize_u8(paths, 40, card)
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    cache = nvjpeg_loader.DeviceFrameCache(1, card)
+    batch = paths[:3] + paths[:1]
+    xs, ys, flips = [0, 3, 8, 1], [8, 0, 2, 7], [0, 1, 0, 1]
+    norm, raw = cache.load_batch(batch, 40, 32, xs, ys, flips)
+    assert (cache.hits, cache.misses) == (0, 4)
+    want_n, want_r = nvjpeg_loader.crop_normalize_u8(
+        want[[0, 1, 2, 0]], 32, xs, ys, flips)
+    # the card divides by 255 as a product with its reciprocal: an ulp
+    assert torch.equal(raw.cpu(), want_r)
+    assert torch.allclose(norm.cpu(), want_n, atol=1e-5, rtol=0)
+    cache.load_batch(batch, 40, 32, xs, ys, flips)
+    assert (cache.hits, cache.misses) == (4, 4)
+
+
+def test_roi_and_compact_batches_on_the_card(card):
+    """roi_batch for every method on the card against the same function
+    on the CPU, and compact_batch / expand_compact_batch through a card
+    round trip bit-equal to the CPU's."""
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.cams.roi import roi_batch
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.data.pipeline import compact_batch
+    from tcam_wsol_video_tpu_torch.engine.steps import expand_compact_batch
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
+    cams = np.zeros((8, 64, 64), np.float32)
+    for i in range(8):
+        for _ in range(3):
+            cy, cx = rng.uniform(8, 56, 2)
+            cams[i] = np.maximum(cams[i], rng.uniform(0.3, 1.0) * np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / 30.0))
+    cpu = torch.from_numpy(cams)
+    for method in constants.ROI_SELECT:
+        want = roi_batch(cpu, method)
+        got = roi_batch(cpu.to(card), method)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), method
+    batch = {"raw_img": torch.from_numpy(rng.uniform(
+        0, 255, (4, 32, 32, 3)).astype(np.float32)),
+        "std_cam": cpu[:4, :32, :32], "roi": (cpu[:4, :32, :32] > 0.5).int(),
+        "msk_bbox": torch.ones(4, 32, 32)}
+    want = expand_compact_batch(compact_batch(batch))
+    got = expand_compact_batch({k: v.to(card) for k, v in compact_batch(
+        {k: v.to(card) if k == "raw_img" else v
+         for k, v in batch.items()}).items()})
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k

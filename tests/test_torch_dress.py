@@ -52,6 +52,9 @@ def test_run_records_both_stages_and_evaluate(records):
         assert rec[stage]["median_step_ms"] > 0
     assert rec["dump"]["n_frames"] == 3 * 2 * 2 * 4
     # evaluate at the trainer's interval and batch equals its test pass
+    # (under the script's --h2d_transfer uint8 evaluate reads float
+    # pixels and the trainer rounded ones, as in JAX: on this set no box
+    # moves)
     assert rec["evaluate"]["matches_trainer"]
     assert max(rec["evaluate"]["gap_to_trainer"].values()) == 0.0
     assert rec["evaluate"]["final"]["interval"] == dress.FINAL_INTERVAL

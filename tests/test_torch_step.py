@@ -24,7 +24,7 @@ from tcam_wsol_video_tpu.engine.steps import make_train_step as jstep
 from tcam_wsol_video_tpu.losses.build import get_loss as jget_loss
 from tcam_wsol_video_tpu_torch.cams.roi import roi_one_cam_np
 from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
-from tcam_wsol_video_tpu_torch.core.config import (TCAMConfig,
+from tcam_wsol_video_tpu_torch.core.config import (TCAMConfig, finalize,
                                                    stage2_tcam_production,
                                                    stage2_tcam_recipe)
 from tcam_wsol_video_tpu_torch.engine.optim import (build_optimizer,
@@ -69,6 +69,19 @@ def test_config_defaults_match_hparams():
     ref = get_config(C.YTOV1)
     for k, v in TCAMConfig().__dict__.items():
         assert ref[k] == v, (k, ref[k], v)
+    # the train data plane's keys, with JAX's defaults and choices
+    cfg = TCAMConfig()
+    assert (cfg.h2d_transfer, cfg.decode_cache_mb,
+            cfg.train_device_cache_mb) == ("float32", 0, 0)
+    for k in ("h2d_transfer", "decode_cache_mb", "train_device_cache_mb"):
+        assert ref[k] == getattr(cfg, k), k
+    assert finalize(cfg.replace(h2d_transfer="uint8")).h2d_transfer == "uint8"
+    for bad in (dict(h2d_transfer="uint16"),
+                dict(sl_tc_roi_method="roi_nope")):
+        with pytest.raises(ValueError):
+            finalize(cfg.replace(**bad))
+    for method in C.ROI_SELECT:
+        assert finalize(cfg.replace(sl_tc_roi_method=method))
 
 
 def _jax_args(targs=None):
