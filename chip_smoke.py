@@ -27,8 +27,9 @@ Phases (any failure raises and the script exits non-zero):
      its kernel and solve numbers compare with earlier runs): STEPS train
      steps and one eval
      step; then the same first step from the same state through the fused
-     Nystrom kernels (TCAM_FUSED_LANDMARKS=1), its loss terms against path
-     B's; every Cholesky factorization checked (info == 0);
+     Nystrom kernels (TCAM_FUSED_LANDMARKS=1, the lockstep solve between
+     them), its loss terms against path B's; every cholesky_ex
+     factorization checked (info == 0);
   7. path C, the eval step with the mean-field CRF refinement (5
      iterations of the exact kernel) at batch 32;
   8. at batch 2, the landmark CRF loss value and gradient through the
@@ -73,7 +74,20 @@ Phases (any failure raises and the script exits non-zero):
      equal, the CAM side within JAX's tolerances);
  13. roi_batch (ROI_LARGEST, ROI_H_DENSITY) at batch 32 / 224 px on the
      card against the host route roi_one_cam_np, timed;
- 14. time each kernel (and the exact filter's per-call spread and
+ 14. path H (on path D's set and store): cli/train.main with --config
+     config_yaml/ytov1_stage2_tcam.yaml, the production script's
+     --crf_impl landmarks, --im_rec true and --sl_tc_epoch_switch_to_sl 1,
+     3 epochs: the seed source switches to the best student at epoch 1
+     (reloaded only on a new best epoch; its roi_batch timed), build_knm
+     twice a step;
+ 15. path I: the F_CL task (UnetFCAM, every F-CAM loss and im_rec, the
+     exact CRF) through cli/train.main for 2 epochs, kernel 1 once a
+     step, each loss term printed; then cli/evaluate.main on its
+     best-localization snapshot against the trainer's test pass;
+ 16. the landmark filter's solve at path B's shapes: the lockstep solve
+     against cholesky_ex, both timed, and the fused route (lockstep) at
+     batch 32 against its plain version;
+ 17. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -807,8 +821,10 @@ def phase_production(seed: int, steps: int, profile: bool) -> dict:
         fused = run_steps(train_step, state, batch, switches, gen, steps,
                           timer, "path B fused")
         fused_launches = read_counts()
-    check_infos(infos, "path B fused")
-    print(f"[path B fused] launches {fused_launches}", flush=True)
+    check(len(infos) == 0, "path B fused: cholesky_ex ran; the fused "
+          "route solves with the lockstep solve")
+    print(f"[path B fused] launches {fused_launches} (lockstep solve)",
+          flush=True)
     check(fused_launches["nystrom_rhs"]["kernel"] >= 1
           and fused_launches["nystrom_out"]["kernel"] >= 1,
           "path B fused: the Nystrom kernels did not run")
@@ -1558,6 +1574,248 @@ def phase_recompute(seed: int, data: dict, s1_outd: str) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# ------------------------------ path H: the stage-2 recipe from its yaml
+PATH_H_EPOCHS = 3
+PATH_I_EPOCHS = 2
+
+
+def path_h_flags(root: str, store: str, outd: str) -> list:
+    """cli/train.py --config config_yaml/ytov1_stage2_tcam.yaml over path
+    D's set and stand-in store at bs 32 / 224 px, with the production
+    script's --crf_impl landmarks, image reconstruction and the
+    best-student seed switch from epoch 1, PATH_H_EPOCHS epochs."""
+    return ["--config", os.path.join(ROOT, "config_yaml",
+                                     "ytov1_stage2_tcam.yaml")] + \
+        common_flags(root) + [
+        "--eval_batch_size", "32", "--max_epochs", str(PATH_H_EPOCHS),
+        "--crf_impl", "landmarks", "--im_rec", "true",
+        "--sl_tc_epoch_switch_to_sl", "1", "--checkpoint_save", "0",
+        "--std_cams_folder", store, "--outd", outd, "--exp_id", "h"]
+
+
+class RoiTimer:
+    """CUDA events around each roi_batch call of the train steps (the
+    student seed source's ROI_LARGEST); read after the run."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from tcam_wsol_video_tpu_torch.engine import steps as port_steps
+        self.mod, self.fn = port_steps, port_steps.roi_batch
+
+        def timed(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*a, **k)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+        self.mod.roi_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.roi_batch = self.fn
+
+    def millis(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def phase_recipe_yaml(seed: int, data: dict) -> dict:
+    """Path H: cli/train.main with path_h_flags, counts reset just before:
+    the seed source is the stored CAMs in epoch 0 and the best student
+    from epoch 1 on (loaded once a best-localization epoch, its
+    roi_batch timed in each step), K_nm built twice a step (kernel 4),
+    no exact filter."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+
+    root = data["root"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with RoiTimer() as roi_timer:
+        out = cli_train.main(path_h_flags(root, os.path.join(root, "cams"),
+                                          os.path.join(root, "exps_h")))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    roi_ms = roi_timer.millis()
+    args = out["args"]
+    print(f"[path H] --config config_yaml/ytov1_stage2_tcam.yaml: task "
+          f"{args.task}, lr {args.lr}, seeds {args.sl_tc_min}/"
+          f"{args.sl_tc_max} {args.sl_tc_seed_tech}, knn {args.sl_tc_knn} "
+          f"{args.sl_tc_knn_mode}, crf_impl {args.crf_impl} M "
+          f"{args.crf_n_landmarks}, im_rec {args.im_rec}, switch at epoch "
+          f"{args.sl_tc_epoch_switch_to_sl}", flush=True)
+    check(args.sl_tc_knn_mode == "before-after" and args.crf_tc_lambda
+          == 2e-9 and args.batch_size == 32, "path H: the yaml was not read")
+    rep = report_trainer("path H", out, PATH_H_EPOCHS)
+    steps = rep["steps"]
+    train = out["records"]["train"]
+    for r in train:
+        print(f"[path H epoch {r['epoch']}] seed source {r['seed_source']}"
+              f" (student snapshot of epoch {r['student_epoch']}, "
+              f"{r['student_reloads']} reloads), median step "
+              f"{r['median_step_ms']:.2f} ms, data wait "
+              f"{r['data_wait_ms_per_step']:.2f} ms/step; terms " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in r["terms"].items()), flush=True)
+    sources = [r["seed_source"] for r in train]
+    check(sources == ["batch"] + ["student"] * (PATH_H_EPOCHS - 1),
+          f"path H: seed sources {sources}")
+    reloads = sum(r["student_reloads"] for r in train)
+    check(1 <= reloads <= PATH_H_EPOCHS - 1, f"path H: {reloads} reloads")
+    check("img_reconstruction" in train[0]["terms"],
+          "path H: no image reconstruction term")
+    student_steps = steps - train[0]["steps"]
+    check(len(roi_ms) == student_steps, f"path H: roi_batch ran "
+          f"{len(roi_ms)} times in {student_steps} student steps")
+    knm = launches["knm_build"]["kernel"]
+    print(f"[path H] {reloads} student reloads; roi_batch (ROI_LARGEST, "
+          f"B=32) in the student steps median "
+          f"{statistics.median(roi_ms):.2f} ms (min {min(roi_ms):.2f}, max "
+          f"{max(roi_ms):.2f}); knm_build {knm} launches in {steps} steps; "
+          f"{launches}; cli/train.main {wall_s:.2f} s", flush=True)
+    check(knm == 2 * steps, f"path H: build_knm launched {knm} times in "
+          f"{steps} steps (K_nm + K_mm each)")
+    check(launches["bilateral_exact"]["kernel"] == 0,
+          "path H: the exact filter ran")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path H: a plain version ran")
+    return {"wall_s": wall_s, "launches": launches, "steps": steps,
+            "seed_sources": sources, "student_reloads": reloads,
+            "roi_batch_ms": roi_ms, "train": train,
+            "eval": out["records"]["eval"], "test_best_loc": rep["best"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ----------------------------------------------------- path I: F_CL
+def path_i_flags(root: str, store: str, outd: str) -> list:
+    """The F_CL (F-CAM) task with every one of its losses and image
+    reconstruction, the exact CRF, over the stand-in store (its seeds:
+    the TCAM seeder's defaults, as the JAX step draws them)."""
+    return common_flags(root) + [
+        "--task", "F_CL", "--arch", "UnetFCAM", "--batch_size", "32",
+        "--eval_batch_size", "32", "--max_epochs", str(PATH_I_EPOCHS),
+        "--lr", "0.01", "--freeze_cl", "true", "--sl_fc", "true",
+        "--crf_fc", "true", "--entropy_fc", "true", "--max_sizepos_fc",
+        "true", "--im_rec", "true", "--crf_impl", "exact",
+        "--checkpoint_save", "0", "--std_cams_folder", store, "--outd",
+        outd, "--exp_id", "i"]
+
+
+def phase_f_cl(seed: int, data: dict) -> dict:
+    """Path I: cli/train.main with path_i_flags (counts reset just
+    before; kernel 1 once a step), then cli/evaluate.main on its
+    best-localization snapshot against the trainer's test pass."""
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_eval
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+
+    root = data["root"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(path_i_flags(root, os.path.join(root, "cams"),
+                                      os.path.join(root, "exps_i")))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    rep = report_trainer("path I", out, PATH_I_EPOCHS)
+    steps = rep["steps"]
+    train = out["records"]["train"]
+    names = {"img_reconstruction", "self_learning_fcams",
+             "con_ran_field_fcams", "entropy_fcams",
+             "max_size_positive_fcams"}
+    for r in train:
+        print(f"[path I epoch {r['epoch']}] terms " + ", ".join(
+            f"{k} {v:.6g}" for k, v in r["terms"].items()), flush=True)
+        check(set(r["terms"]) == names and all(
+            np.isfinite(v) for v in r["terms"].values()),
+              f"path I: loss terms {r['terms']}")
+    k = launches["bilateral_exact"]["kernel"]
+    print(f"[path I launches] bilateral_exact {k} in {steps} steps; "
+          f"{launches}; cli/train.main {wall_s:.2f} s", flush=True)
+    check(k == steps, f"path I: the exact CRF kernel launched {k} times in "
+          f"{steps} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path I: a plain version ran")
+
+    t0 = time.perf_counter()
+    ev = cli_eval.main(common_flags(root) + [
+        "--task", "F_CL", "--arch", "UnetFCAM", "--im_rec", "true",
+        "--eval_batch_size", "32", "--exp_dir", out["outd"], "--split",
+        "test"])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    want = rep["best"]
+    gaps = {s: abs(ev[f"maxboxacc_{s}"] - want[f"maxboxacc_{s}"])
+            for s in (30, 50, 70)}
+    share = 100.0 / 320
+    print(_eval_line("path I evaluate test best_localization",
+                     {**ev, **ev["timing"]})
+          + "; |evaluate - trainer| at IoU 30/50/70 "
+          + "/".join(f"{g:.4f}" for g in gaps.values())
+          + f" (tol {share:.4f}, one image); cli/evaluate.main {ev_s:.2f} s",
+          flush=True)
+    check(ev["n_images"] == 320 and max(gaps.values()) <= share,
+          f"path I: evaluate is {gaps} off the trainer's test pass")
+    return {"wall_s": wall_s, "evaluate_s": ev_s, "launches": launches,
+            "steps": steps, "train": train, "eval": out["records"]["eval"],
+            "test_best_loc": want, "evaluate": dict(ev),
+            "evaluate_gap": gaps,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ---------------------------------------------- the landmark filter's solve
+# the lockstep solve against cholesky_ex, relative L2
+# (tests/test_torch_landmarks.py's SOLVE_RTOL)
+SOLVE_RTOL = 5e-4
+
+
+def phase_solve(seed: int, b: int = 32, crop: int = 224,
+                m_req: int = 1024) -> dict:
+    """At path B's shapes (G = 32 systems K_mm + 1e-2 I of M = 1024
+    landmarks, K = 2): the lockstep solve against cholesky_ex, each timed;
+    then the fused route (whose solve is the lockstep one) against its
+    plain version."""
+    from tcam_wsol_video_tpu_torch.ops import linalg
+    from tcam_wsol_video_tpu_torch.ops.cuda import landmarks
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    feats, fm, idx, vals = landmark_inputs(gen, b, crop, crop, 100.0, m_req)
+    kmm = landmarks.add_ridge(landmarks.build_knm(fm, fm), 1e-2)
+    rhs = landmarks.nystrom_rhs(feats, fm, vals)
+    with linalg.record_info() as infos:
+        cho = linalg.batched_cholesky_solve(kmm, rhs)
+    check_infos(infos, "solve phase")
+    lock = linalg.lockstep_solve(kmm, rhs)
+    rel = float((lock - cho).norm() / cho.norm())
+    t = {"cholesky_ex_ms": cuda_time_ms(
+        lambda: linalg.batched_cholesky_solve(kmm, rhs), 5),
+        "lockstep_ms": cuda_time_ms(lambda: linalg.lockstep_solve(kmm, rhs),
+                                    3),
+        "lockstep_vs_cholesky_rel": rel, "shape": [b, fm.shape[1], 2]}
+    t["lockstep_spread"] = spread(cuda_call_ms(
+        lambda: linalg.lockstep_solve(kmm, rhs), 5))
+    print(f"[solve] G={b} M={fm.shape[1]} K={vals.shape[2]}: lockstep "
+          f"{t['lockstep_ms']:.3f} ms (per call median "
+          f"{t['lockstep_spread']['median']:.3f}), cholesky_ex "
+          f"{t['cholesky_ex_ms']:.3f} ms; lockstep vs cholesky_ex rel "
+          f"{rel:.3e} (tol {SOLVE_RTOL})", flush=True)
+    check(rel <= SOLVE_RTOL, f"lockstep solve {rel:.3e} off cholesky_ex")
+    row = _rel_row("nystrom_filter_fused", f"B{b}_{crop}x{crop}_lockstep",
+                   landmarks.nystrom_filter(feats, vals, idx),
+                   landmarks.nystrom_filter_plain(feats, vals, idx),
+                   [b, feats.shape[1], feats.shape[2], fm.shape[1], 2],
+                   LMK_RTOL)
+    t["fused_check"] = row
+    del feats, fm, vals, kmm, rhs, cho, lock
+    torch.cuda.empty_cache()
+    return t
+
+
 # ------------------------------------------------------------ TF32 vs fp32
 def phase_tf32_gap(seed: int, tf32_steps: list) -> dict:
     """Path A at float32 runs its cuDNN convolutions in TF32.  Rebuild the
@@ -1964,8 +2222,12 @@ def main(argv=None) -> int:
     result["chain"] = phase_chain(SEED, data)
     result["recompute"] = phase_recompute(SEED, data,
                                           result["chain"]["stage1_outd"])
+    result["recipe_yaml"] = phase_recipe_yaml(SEED, data)
+    result["f_cl"] = phase_f_cl(SEED, data)
     shutil.rmtree(data["root"])
     result["roi"] = phase_roi(SEED)
+    result["solve"] = phase_solve(SEED)
+    result["checks"].append(result["solve"]["fused_check"])
     timing = phase_timing(SEED, 32, 224)
     result["timing"] = timing
     # the single-image function (the B = 1 case), off the main path
@@ -1999,6 +2261,10 @@ def main(argv=None) -> int:
             "bilateral_exact"]["kernel"],
         "launches_path_g": result["feed"]["launches"]["bilateral_exact"][
             "kernel"],
+        "launches_path_h": result["recipe_yaml"]["launches"][
+            "bilateral_exact"]["kernel"],
+        "launches_path_i": result["f_cl"]["launches"]["bilateral_exact"][
+            "kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -2022,6 +2288,9 @@ def main(argv=None) -> int:
                 "nystrom_out": "170"}[name],
             "launches": launches,
             "launches_path_g": result["feed"]["launches"][name]["kernel"],
+            "launches_path_h": result["recipe_yaml"]["launches"][name][
+                "kernel"],
+            "launches_path_i": result["f_cl"]["launches"][name]["kernel"],
             "max_abs_err": max_err(name),
             "ms": lmk[f"{key}_ms"], "plain_ms": lmk[f"{key}_plain_ms"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -2091,6 +2360,29 @@ def main(argv=None) -> int:
           f"test MaxBoxAcc@50 {pf['test_best_loc']['maxboxacc_50']:.2f}; "
           f"cli/train.main {pf['wall_s']:.1f} s; total "
           f"{result['seconds']:.1f} s", flush=True)
+    ph, pi, sv = result["recipe_yaml"], result["f_cl"], result["solve"]
+    print(f"[summary] path H (--config ytov1_stage2_tcam.yaml, landmarks, "
+          f"im_rec, switch at 1): seed sources {'/'.join(ph['seed_sources'])}"
+          f", {ph['student_reloads']} student reloads, median step "
+          f"{per_epoch(ph['train'], 'median_step_ms')} ms, data wait "
+          f"{per_epoch(ph['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"roi_batch in the student step median "
+          f"{statistics.median(ph['roi_batch_ms']):.2f} ms, knm_build "
+          f"{ph['launches']['knm_build']['kernel']} launches in "
+          f"{ph['steps']} steps, test MaxBoxAcc@50 "
+          f"{ph['test_best_loc']['maxboxacc_50']:.2f}", flush=True)
+    print(f"[summary] path I (F_CL): median step "
+          f"{per_epoch(pi['train'], 'median_step_ms')} ms, data wait "
+          f"{per_epoch(pi['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"bilateral_exact {pi['launches']['bilateral_exact']['kernel']} "
+          f"launches in {pi['steps']} steps, test MaxBoxAcc 30/50/70 "
+          + "/".join(f"{pi['test_best_loc'][f'maxboxacc_{s}']:.2f}"
+                     for s in (30, 50, 70))
+          + ", evaluate gap " + "/".join(
+              f"{g:.4f}" for g in pi["evaluate_gap"].values()), flush=True)
+    print(f"[summary] solve G=32 M=1024: lockstep {sv['lockstep_ms']:.3f} ms"
+          f", cholesky_ex {sv['cholesky_ex_ms']:.3f} ms, rel "
+          f"{sv['lockstep_vs_cholesky_rel']:.3e}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""TCAM pseudo-label (seed) sampler, batched (port of cams/seeding.py
-tcam_seeder).
+"""Pseudo-label (seed) samplers, batched (port of cams/seeding.py
+tcam_seeder and fcam_seeder).
 
 Per sample: foreground seeds are drawn without replacement from the top
 max_p fraction of CAM pixels (inside the ROI when use_roi), uniformly or
@@ -8,6 +8,12 @@ both dilated by ksz, collisions cleared; output {1: fg, 0: bg, ignore};
 constant CAMs seed nothing.  Sampling without replacement is the Gumbel
 top-k trick, and the pools and large-k selections use the same multi-probe
 bisection as the JAX seeder, so equal Gumbel noise gives equal masks.
+
+fcam_seeder (F-CAM's MBSeederSLFCAMS): foreground seeds uniformly inside
+the eroded STOtsu ROI of the CAM, background seeds uniformly in the
+bottom min_p fraction.  As in the JAX package, the F_CL train step seeds
+with tcam_seeder and the sl_tc_* keys; fcam_seeder has no caller on a
+path.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.ops import morphology
+from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_batch
 
 _BISECT_ITERS = 8
 _BISECT_PROBES = 7
@@ -81,6 +88,32 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
                    device=device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def _select(keys: torch.Tensor, eligible: torch.Tensor, k: int
+            ) -> torch.Tensor:
+    """Row-wise Gumbel top-k masks (R, P) int32 of k static draws: k
+    argmax rounds, or the bisection above _BISECT_TOPK_THRESHOLD."""
+    if k > _BISECT_TOPK_THRESHOLD:
+        return _gumbel_topk_bisect_rows(
+            keys, eligible, torch.full((keys.shape[0],), k,
+                                       dtype=torch.int32,
+                                       device=keys.device))
+    return _gumbel_topk_argmax_rows(keys, k)
+
+
+def _finish_seeds(fg: torch.Tensor, bg: torch.Tensor, ksz: int,
+                  ignore: int) -> torch.Tensor:
+    """Dilate both seed masks by ksz, clear their collisions, and write
+    {1: fg, 0: bg, ignore elsewhere}."""
+    fg = morphology.dilate(fg, ksz)
+    bg = morphology.dilate(bg, ksz)
+    both = (fg + bg) == 2
+    fg = torch.where(both, 0, fg)
+    bg = torch.where(both, 0, bg)
+    out = torch.full(fg.shape, ignore, dtype=torch.int32, device=fg.device)
+    out = torch.where(fg == 1, 1, out)
+    return torch.where(bg == 1, 0, out).to(torch.int32)
 
 
 @dataclass(frozen=True)
@@ -179,13 +212,51 @@ def tcam_seeder(cams: torch.Tensor, cfg: TCAMSeederCfg,
     fg = torch.where(degenerate[:, None], 0, fg).reshape(b, h, w)
     bg = torch.where(degenerate[:, None], 0, bg).reshape(b, h, w)
 
-    fg = morphology.dilate(fg, cfg.ksz)
-    bg = morphology.dilate(bg, cfg.ksz)
-    both = (fg + bg) == 2
-    fg = torch.where(both, 0, fg)
-    bg = torch.where(both, 0, bg)
+    return _finish_seeds(fg, bg, cfg.ksz, cfg.seg_ignore_idx)
 
-    out = torch.full((b, h, w), cfg.seg_ignore_idx, dtype=torch.int32,
-                     device=dev)
-    out = torch.where(fg == 1, 1, out)
-    return torch.where(bg == 1, 0, out).to(torch.int32)
+
+@dataclass(frozen=True)
+class FCAMSeederCfg:
+    min_: int = 10           # bg samples
+    max_: int = 10           # fg samples
+    min_p: float = 0.2       # bottom fraction eligible for bg
+    fg_erode_k: int = 11
+    fg_erode_iter: int = 1
+    ksz: int = 1             # seed dilation kernel
+    seg_ignore_idx: int = constants.SEG_IGNORE_IDX
+
+
+def fcam_seeder(cams: torch.Tensor, cfg: FCAMSeederCfg,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cams (B, H, W) in [0, 1] -> (B, H, W) int32 in {1, 0, ignore}.
+    Foreground: max_ uniform draws inside the ROI floor(255 cam) >= its
+    STOtsu threshold, eroded fg_erode_iter times by fg_erode_k;
+    background: min_ uniform draws in the bottom min_p fraction of the
+    CAM.  gumbel (B, 2, H*W) gives the fg/bg Gumbel noise explicitly;
+    otherwise it is drawn from `generator`."""
+    b, h, w = cams.shape
+    p = h * w
+    dev = cams.device
+    if gumbel is None:
+        gumbel = gumbel_noise((b, 2, p), generator, dev)
+    q = torch.floor(cams * 255.0)
+    roi = (q >= otsu_threshold_batch(cams)[:, None, None]).float()
+    if cfg.fg_erode_iter > 0:
+        roi = morphology.erode(roi, cfg.fg_erode_k, cfg.fg_erode_iter)
+    fg_elig = roi.reshape(b, p) > 0
+    fg = _select(torch.where(fg_elig, gumbel[:, 0], float("-inf")),
+                 fg_elig, max(int(cfg.max_), 1))
+    if cfg.max_ <= 0:
+        fg = torch.zeros_like(fg)
+
+    n_bg = int(cfg.min_p * p)
+    bg_elig = _top_fraction_mask_rows(
+        -(cams.reshape(b, p) + 1e-8),
+        torch.full((b,), n_bg, dtype=torch.int32, device=dev)) & (n_bg > 0)
+    bg = _select(torch.where(bg_elig, gumbel[:, 1], float("-inf")),
+                 bg_elig, max(int(cfg.min_), 1))
+    if cfg.min_ <= 0:
+        bg = torch.zeros_like(bg)
+    return _finish_seeds(fg.reshape(b, h, w), bg.reshape(b, h, w), cfg.ksz,
+                         cfg.seg_ignore_idx)

@@ -6,6 +6,8 @@ one process).
         --exp_dir <experiment folder> [--split test] \\
         [--eval_checkpoint_type best_localization] [--device cpu]
 
+(--task F_CL --arch UnetFCAM for an F_CL run; --im_rec true when the
+run trained the reconstruction head, whose weights the snapshot holds.)
 It loads the eval_checkpoint_type snapshot of --exp_dir into the model of
 --task, runs the split through the evaluator (the CAM of each image, the
 host box sweep, MaxBoxAcc at each IoU threshold, top-1 classification)

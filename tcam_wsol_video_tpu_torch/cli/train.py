@@ -1,15 +1,20 @@
-"""Training entry point of the STD_CL and TCAM tasks (port of
+"""Training entry point of the STD_CL, F_CL and TCAM tasks (port of
 cli/train.py).
 
     python -m tcam_wsol_video_tpu_torch.cli.train --task STD_CL \\
         --data_root <root> --metadata_root <folds> ... [--device cpu]
-    python -m tcam_wsol_video_tpu_torch.cli.train --task TCAM \\
-        --arch UnetTCAM --data_root <root> --metadata_root <folds> \\
+    python -m tcam_wsol_video_tpu_torch.cli.train \\
+        --config config_yaml/ytov1_stage2_tcam.yaml \\
+        --data_root <root> --metadata_root <folds> \\
         --std_cams_folder <CAM store> --folder_pre_trained_cl <stage 1> \\
-        --sl_tc true --crf_tc true ... [--device cpu]
+        [--sl_tc_epoch_switch_to_sl 1 --im_rec true ...] [--device cpu]
+    python -m tcam_wsol_video_tpu_torch.cli.train --task F_CL \\
+        --arch UnetFCAM --std_cams_folder <CAM store> --sl_fc true \\
+        --crf_fc true --entropy_fc true --max_sizepos_fc true ...
 
-Flags are the JAX CLI's (core/config.py).  It builds the data layer (over
-the CAM store for TCAM; STD_CL reads no store), the model (random weights
+Flags are the JAX CLI's (core/config.py), with --config <yaml> applied
+before them.  It builds the data layer (over the CAM store for F_CL and
+TCAM; STD_CL reads no store), the model (random weights
 from --seed, then the encoder and classifier of --folder_pre_trained_cl
 when given: a stage-1 experiment folder written by this package, whose
 tcam_pretrained_cl_ch_pt snapshot is read), and runs Trainer.fit:
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -185,6 +191,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if (args.task == constants.TCAM and args.sl_tc
             and train_pipe.ds.cam_store is None):
         classifier, seeder_step = load_seeder_classifier(args, kc, device)
+    if (args.task == constants.F_CL and (args.sl_fc or args.sl_tc)
+            and train_pipe.ds.cam_store is None):
+        # the JAX step recomputes the seed CAMs for TCAM only
+        warnings.warn("F_CL without --std_cams_folder seeds from the "
+                      "dataset's all-zero CAMs (no seeds are drawn), as in "
+                      "the JAX package")
 
     trainer = Trainer(args, model, train_pipe, eval_pipes, keychain=kc,
                       device=device, classifier=classifier)

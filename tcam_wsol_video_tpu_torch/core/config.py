@@ -3,12 +3,15 @@
 Names and defaults are those of the JAX package's core/hparams.py
 `get_config` (YouTube-Objects-v1.0 defaults), so a recipe written for one
 package reads the same in the other, and `parse_args` takes the same
-`--key value` flags (booleans as true/false, lists as [a, b]).  The
-full hparams port (--config yaml files, every task's keys) is later work.
-`stage1_cam_recipe` gives the stage-1 classifier of
-config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the stage-2 step
-flags of the end-to-end script, `stage2_tcam_production` those of the
-production stage-2 script (landmark CRF).
+command line: `--key value` flags (booleans as true/false, lists as
+[a, b]), `--config <yaml>` applied before them, and the reference's
+spellings (`--opt__*` aliases, runtime flags dropped with a warning).
+The keys of tasks and modules not ported yet (C_BOX, the other encoders,
+heads and CAM methods, the throughput knobs) are absent: a flag or a yaml
+key naming one is refused.  `stage1_cam_recipe` gives the stage-1
+classifier of config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the
+stage-2 step flags of the end-to-end script, `stage2_tcam_production`
+those of the production stage-2 script (landmark CRF).
 """
 from __future__ import annotations
 
@@ -16,15 +19,20 @@ import argparse
 import dataclasses
 import json
 import os
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.data.folds import (parse_flat_mapping,
+                                                  parse_scalar)
 
 # the choices of compute_dtype and eval_compute_dtype (the JAX model
 # factory's table), and of h2d_transfer
 COMPUTE_DTYPES = ("float32", "bfloat16")
 H2D_TRANSFERS = ("float32", "uint8")
+# the tasks of the JAX package that are ported (C_BOX is not)
+PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM)
 
 
 def get_root_datasets_dir() -> str:
@@ -109,8 +117,13 @@ class TCAMConfig:
     elb_init_t: float = 1.0
     elb_max_t: float = 10.0
     elb_mulcoef: float = 1.01
-    # image reconstruction (not ported; read only to refuse it)
+    # image reconstruction: a head on the decoder's output in
+    # [0, img_range], trained by the MSE to the network input (or an ELB
+    # over it)
+    img_range: float = 1.0
     im_rec: bool = False
+    im_rec_lambda: float = 1.0
+    im_rec_elb: bool = False
     # clip sampling: knn_tc > 0 makes batches of clips of 2 knn_tc + 1
     # frames (the temporal joint CRF's layout)
     knn_tc: int = 0
@@ -120,6 +133,10 @@ class TCAMConfig:
     sl_tc_knn_t: float = 0.0
     sl_tc_knn_epoch_switch_uniform: int = -1
     sl_tc_min_t: float = 0.0
+    # from this epoch (-1: never) the seeds come from the best student's
+    # own CAMs (its best-localization snapshot) in place of the stored
+    # ones
+    sl_tc_epoch_switch_to_sl: int = -1
     # self-learning seeds
     sl_tc: bool = False
     sl_tc_lambda: float = 1.0
@@ -127,6 +144,7 @@ class TCAMConfig:
     sl_tc_end_ep: int = -1
     sl_tc_min: int = 10
     sl_tc_max: int = 10
+    sl_tc_block: int = 1        # accepted; seeds are per pixel (1 only)
     sl_tc_ksz: int = 1
     sl_tc_min_p: float = 0.2
     sl_tc_max_p: float = 0.2
@@ -180,6 +198,33 @@ class TCAMConfig:
     # eval: mean-field CRF refinement of the CAMs
     crf_post_process: bool = False
     crf_pp_iters: int = 5
+    # F_CL (F-CAM): self-learning CE, dense CRF, entropy and the ELB size
+    # prior on the UnetFCAM's maps; its seeds come from the sl_tc_*
+    # seeder, as in the JAX step
+    sl_fc: bool = False
+    sl_fc_lambda: float = 1.0
+    sl_start_ep: int = 0
+    sl_end_ep: int = -1
+    sl_min: int = 10
+    sl_max: int = 10
+    sl_block: int = 1           # accepted; seeds are per pixel (1 only)
+    sl_ksz: int = 1
+    sl_min_p: float = 0.2
+    sl_fg_erode_k: int = 11
+    sl_fg_erode_iter: int = 1
+    crf_fc: bool = False
+    crf_lambda: float = 2e-9
+    crf_sigma_rgb: float = 15.0
+    crf_sigma_xy: float = 100.0
+    crf_scale: float = 1.0
+    crf_start_ep: int = 0
+    crf_end_ep: int = -1
+    entropy_fc: bool = False
+    entropy_fc_lambda: float = 1.0
+    max_sizepos_fc: bool = False
+    max_sizepos_fc_lambda: float = 1.0
+    max_sizepos_fc_start_ep: int = 0
+    max_sizepos_fc_end_ep: int = -1
 
     def replace(self, **kw) -> "TCAMConfig":
         return dataclasses.replace(self, **kw)
@@ -238,7 +283,8 @@ _TRUE = {"1", "true", "yes", "y", "t"}
 
 
 def _coerce(default, text: str):
-    """A command-line string as the type of the key's default."""
+    """A command-line string as the type of the key's current value (its
+    default, or the --config yaml's value)."""
     if isinstance(default, bool):
         return text.lower() in _TRUE
     if isinstance(default, int):
@@ -250,7 +296,91 @@ def _coerce(default, text: str):
         if not isinstance(value, list):
             raise ValueError(f"expected a list like [30, 50, 70]: {text!r}")
         return value
+    if default is None:
+        try:
+            return parse_scalar(text)
+        except ValueError:
+            return text
     return text
+
+
+# the reference's flag names -> the config's keys, so its published
+# commands paste in unchanged (the JAX package's core/hparams.py)
+REFERENCE_ALIASES = {
+    "opt__name_optimizer": "opt_name",
+    "opt__lr": "lr",
+    "opt__momentum": "momentum",
+    "opt__dampening": "dampening",
+    "opt__nesterov": "nesterov",
+    "opt__weight_decay": "weight_decay",
+    "opt__name_lr_scheduler": "lr_scheduler",
+    "opt__gamma": "gamma",
+    "opt__min_lr": "min_lr",
+    "opt__t_max": "t_max",
+    "opt__step_size": "step_size",
+    "opt__lr_classifier_ratio": "lr_classifier_ratio",
+}
+# the reference's runtime flags (distributed launch, device ids, AMP) and
+# its adam-only keys: accepted and dropped with a warning
+REFERENCE_IGNORED = {
+    "local_world_size", "local_rank", "dist_backend", "cudaid",
+    "c_cudaid", "world_size", "amp", "amp_eval",
+    "opt__beta1", "opt__beta2", "opt__eps_adam", "opt__amsgrad",
+    "opt__last_epoch",
+}
+
+
+def normalize_reference_argv(argv: Sequence[str]) -> List[str]:
+    """argv with the reference's spellings rewritten: aliases renamed,
+    runtime flags dropped (with a warning), `--opt__lr_scheduler False`
+    -> `--lr_scheduler constant`."""
+    out, dropped, i = [], [], 0
+    argv = list(argv)
+    while i < len(argv):
+        tok = argv[i]
+        if not tok.startswith("--"):
+            out.append(tok)
+            i += 1
+            continue
+        name, eq, inline = tok[2:].partition("=")
+        inline_val = inline if eq else None
+        has_sep_val = (inline_val is None and i + 1 < len(argv)
+                       and not argv[i + 1].startswith("--"))
+        if name in REFERENCE_IGNORED:
+            dropped.append(name)
+            i += 2 if has_sep_val else 1
+            continue
+        if name == "opt__lr_scheduler":
+            val = inline_val if inline_val is not None else (
+                argv[i + 1] if has_sep_val else "true")
+            if val.lower() not in _TRUE:
+                out += ["--lr_scheduler", "constant"]
+            i += 2 if has_sep_val else 1
+            continue
+        if name in REFERENCE_ALIASES:
+            new = REFERENCE_ALIASES[name]
+            out.append(f"--{new}={inline_val}" if inline_val is not None
+                       else f"--{new}")
+        else:
+            out.append(tok)
+        i += 1
+    if dropped:
+        warnings.warn(
+            "reference runtime flags accepted and ignored: "
+            f"{sorted(set(dropped))}", stacklevel=3)
+    return out
+
+
+def read_config_yaml(path: str) -> dict:
+    """A recipe yaml (a flat mapping of scalars) typed as PyYAML's
+    safe_load types it; a key the config lacks raises."""
+    with open(path) as f:
+        values = parse_flat_mapping(f.read())
+    keys = {f.name for f in dataclasses.fields(TCAMConfig)}
+    unknown = sorted(str(k) for k in values if k not in keys)
+    if unknown:
+        raise ValueError(f"{path}: keys of modules not ported: {unknown}")
+    return values
 
 
 def experiment_tag(args) -> str:
@@ -287,6 +417,13 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
             raise ValueError("TCAM trains the UnetTCAM arch")
         if args.dataset not in constants.VIDEO_DATASETS:
             raise ValueError("TCAM needs a video dataset")
+    if args.task == constants.F_CL and args.arch != constants.UNETFCAM:
+        raise ValueError("F_CL trains the UnetFCAM arch")
+    if args.task not in PORTED_TASKS:
+        raise NotImplementedError(f"task {args.task} is not ported")
+    # as upstream, seeds are drawn per pixel: block seeding is a no-op
+    if args.sl_block != 1 or args.sl_tc_block != 1:
+        raise ValueError("only sl_block = sl_tc_block = 1 is supported")
     if args.sl_tc_knn_mode not in constants.TIME_DEPENDENCY:
         raise ValueError(f"sl_tc_knn_mode {args.sl_tc_knn_mode!r}")
     if args.sl_tc_knn_mode == constants.TIME_INSTANT and args.sl_tc_knn:
@@ -308,16 +445,34 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
 
 def parse_args(argv: Optional[Sequence[str]] = None,
                extra: Optional[argparse.ArgumentParser] = None):
-    """`--key value` for every TCAMConfig key -> (finalized config,
-    namespace of `extra`'s own arguments)."""
-    base = TCAMConfig()
+    """The JAX CLI's command line -> (finalized config, namespace of
+    `extra`'s own arguments).  As there: the reference's spellings are
+    normalized first; --dataset picks the defaults; the --config yaml's
+    values replace them as they are (typed as safe_load types them);
+    then each `--key value` flag is coerced to the type of the key's value
+    so far."""
+    import sys
+    argv = normalize_reference_argv(sys.argv[1:] if argv is None else argv)
+    boot = argparse.ArgumentParser(add_help=False)
+    boot.add_argument("--dataset", type=str, default=constants.YTOV1)
+    boot.add_argument("--config", type=str, default="",
+                      help="optional yaml file applied before the flags")
+    ns_boot, rest = boot.parse_known_args(argv)
+    if ns_boot.dataset not in constants.NUMBER_CLASSES:
+        raise ValueError(f"dataset {ns_boot.dataset!r} is not ported")
+    base = TCAMConfig(dataset=ns_boot.dataset,
+                      num_classes=constants.NUMBER_CLASSES[ns_boot.dataset])
+    if ns_boot.config:
+        base = base.replace(**read_config_yaml(ns_boot.config))
+
     parser = argparse.ArgumentParser(
         parents=[extra] if extra is not None else [],
         description="tcam_wsol_video_tpu_torch")
     for f in dataclasses.fields(TCAMConfig):
-        parser.add_argument(f"--{f.name}", type=str, default=None)
-    ns = parser.parse_args(argv)
+        if f.name != "dataset":
+            parser.add_argument(f"--{f.name}", type=str, default=None)
+    ns = parser.parse_args(rest)
     values = {f.name: _coerce(getattr(base, f.name), getattr(ns, f.name))
               for f in dataclasses.fields(TCAMConfig)
-              if getattr(ns, f.name) is not None}
+              if f.name != "dataset" and getattr(ns, f.name) is not None}
     return finalize(base.replace(**values)), ns

@@ -9,6 +9,7 @@ TCAM = "TCAM"
 # architectures
 STDCLASSIFIER = "STDClassifier"
 UNETTCAM = "UnetTCAM"
+UNETFCAM = "UnetFCAM"
 
 # CAM method of the stage-1 classifier (part of the experiment tag); the
 # only method ported

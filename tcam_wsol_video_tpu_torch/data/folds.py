@@ -5,12 +5,14 @@ path per line; image_ids_proxy.txt for the proxy train subset),
 class_labels.txt (`id,label`), image_sizes.txt (`id,w,h`) and
 localization.txt (`id,x0,y0,x1,y1`, one line per box), plus class_id.yaml
 at the folds root.  class_id.yaml is a flat `name: id` mapping, read here
-without a YAML library, in block form (one `name: id` per line) or flow
-form (`{a: 0, b: 1}`).
+without a YAML library (`parse_flat_mapping`, which also reads the flat
+recipe yamls of config_yaml/), in block form (one `name: id` per line) or
+flow form (`{a: 0, b: 1}`).
 """
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -73,34 +75,137 @@ def load_split_metadata(metadata_root: str, split: str,
     return md
 
 
-def _scalar(tok: str):
-    """A YAML plain scalar of the mapping: int, else the unquoted string."""
+# YAML 1.1 plain-scalar resolution as PyYAML's safe_load applies it (its
+# resolver's patterns): `1e-5` has no dot and stays a string, `2.0e-9`
+# is a float, yes/no/on/off are booleans and `~` is null
+_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|"
+                        r"False|FALSE|on|On|ON|off|Off|OFF)$")
+_YAML_TRUE = {"yes", "true", "on"}
+_YAML_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)
+_YAML_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+# plain scalars that safe_load resolves to types this reader does not
+# build (timestamps, merge keys, the value key)
+_YAML_OTHER = re.compile(r"^(?:[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=)$")
+
+
+def _sexagesimal(text: str) -> float:
+    value = 0.0
+    for part in text.split(":"):
+        value = value * 60 + float(part)
+    return value
+
+
+def _yaml_int(text: str) -> int:
+    t = text.replace("_", "")
+    sign = -1 if t[0] == "-" else 1
+    t = t.lstrip("+-")
+    if t == "0":
+        return 0
+    if t.startswith("0b"):
+        return sign * int(t[2:], 2)
+    if t.startswith("0x"):
+        return sign * int(t[2:], 16)
+    if ":" in t:
+        return sign * int(_sexagesimal(t))
+    if t.startswith("0"):
+        return sign * int(t, 8)
+    return sign * int(t)
+
+
+def _yaml_float(text: str) -> float:
+    t = text.replace("_", "").lower()
+    sign = -1.0 if t[0] == "-" else 1.0
+    t = t.lstrip("+-")
+    if t == ".inf":
+        return sign * float("inf")
+    if t == ".nan":
+        return float("nan")
+    if ":" in t:
+        return sign * _sexagesimal(t)
+    return sign * float(t)
+
+
+def parse_scalar(tok: str):
+    """One YAML scalar as safe_load types it: a quoted string, else null,
+    bool, int, float or the plain string.  Anything nested (a flow
+    sequence or mapping, an anchor, a tag, a block scalar) raises."""
     tok = tok.strip()
-    if len(tok) >= 2 and tok[0] == tok[-1] and tok[0] in "'\"":
+    if len(tok) >= 2 and tok[0] == tok[-1] == "'":
+        return tok[1:-1].replace("''", "'")
+    if len(tok) >= 2 and tok[0] == tok[-1] == '"':
+        if "\\" in tok:
+            raise ValueError(f"escapes in a quoted scalar: {tok!r}")
         return tok[1:-1]
-    try:
-        return int(tok)
-    except ValueError:
-        return tok
+    if (tok[:1] in ("[", "{", "&", "*", "!", "|", ">", "'", '"', "@", "`")
+            or tok in ("-", "?") or tok.startswith(("- ", "? "))):
+        raise ValueError(f"not a flat scalar: {tok!r}")
+    if _YAML_NULL.match(tok):
+        return None
+    if _YAML_BOOL.match(tok):
+        return tok.lower() in _YAML_TRUE
+    if _YAML_INT.match(tok):
+        return _yaml_int(tok)
+    if _YAML_FLOAT.match(tok):
+        return _yaml_float(tok)
+    if _YAML_OTHER.match(tok):
+        raise ValueError(f"a YAML scalar this reader does not type: {tok!r}")
+    return tok
 
 
-def parse_flat_mapping(text: str) -> Dict[str, int]:
-    """A flat YAML mapping of scalars, block or flow form."""
-    body = "\n".join(ln.split(" #", 1)[0] for ln in text.splitlines()
-                     if not ln.lstrip().startswith("#"))
-    stripped = body.strip()
+def _strip_comment(line: str) -> str:
+    """The line without its comment: `#` at its start or after blanks,
+    outside quotes."""
+    quote = ""
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = ""
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_flat_mapping(text: str) -> Dict:
+    """A flat YAML mapping of scalars, block form (one `key: value` a
+    line, comments allowed) or flow form (`{a: 0, b: 1}`), with keys and
+    values typed as PyYAML's safe_load types them.  An indented line, a
+    sequence or any other nesting raises ValueError."""
+    lines = [_strip_comment(ln).rstrip() for ln in text.splitlines()]
+    lines = [ln for ln in lines if ln.strip() and ln.strip() != "---"]
+    stripped = "\n".join(lines).strip()
     if stripped.startswith("{"):
         if not stripped.endswith("}"):
-            raise ValueError("unterminated flow mapping in class_id.yaml")
+            raise ValueError("unterminated flow mapping")
         items = [it for it in stripped[1:-1].split(",") if it.strip()]
     else:
-        items = [ln for ln in body.splitlines() if ln.strip()]
-    out: Dict[str, int] = {}
+        items = lines
+        for ln in items:
+            if ln[:1] in " \t":
+                raise ValueError(f"a nested or continued entry: {ln!r}")
+    out: Dict = {}
     for it in items:
-        if ":" not in it:
-            raise ValueError(f"not a `name: id` entry: {it!r}")
-        k, v = it.rsplit(":", 1)
-        out[_scalar(k)] = _scalar(v)
+        it = it.strip()
+        if ": " in it:
+            k, _, v = it.partition(": ")
+        elif it.endswith(":"):
+            k, v = it[:-1], ""
+        else:
+            raise ValueError(f"not a `key: value` entry: {it!r}")
+        key = parse_scalar(k)
+        if key in out:
+            raise ValueError(f"duplicate key {key!r}")
+        out[key] = parse_scalar(v)
     return out
 
 

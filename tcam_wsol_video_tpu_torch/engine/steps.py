@@ -1,6 +1,6 @@
-"""Train / eval steps of the STD_CL and TCAM tasks (port of
-engine/steps.py: their branches of make_train_step and
-make_cam_eval_step, and make_classifier_cam_fn).
+"""Train / eval steps of the STD_CL, F_CL and TCAM tasks (port of
+engine/steps.py: make_train_step with its student seed source,
+make_cam_eval_step and make_classifier_cam_fn).
 
 The train step, the frozen classifier's CAMs (seeds without a store, the
 dump) and the eval step run their model at args.compute_dtype,
@@ -17,6 +17,13 @@ frm_iter (B,) for the losses that read them.  A compact batch
 (h2d_transfer=uint8: raw_u8 in place of image and raw_img, std_cam_u16,
 uint8 roi and msk_bbox) is unpacked at the head of each train step
 (expand_compact_batch); the eval step takes uint8 images as well.
+
+F_CL and TCAM share the step, as in JAX: the seeds (sl_tc or sl_fc) come
+from tcam_seeder with the sl_tc_* keys, and the losses read the decoder's
+maps, the raw image, the model input and the reconstruction.  The
+student seed source (TCAM's sl_tc_epoch_switch_to_sl) takes the seeder's
+CAMs, ROI, box mask and foreground size from the best student's own maps
+(student_seed_inputs) in place of the batch's.
 """
 from __future__ import annotations
 
@@ -25,8 +32,10 @@ from typing import Optional, Sequence
 import torch
 
 from tcam_wsol_video_tpu_torch.cams import extractors as ex
+from tcam_wsol_video_tpu_torch.cams.roi import roi_batch
 from tcam_wsol_video_tpu_torch.cams.seeding import TCAMSeederCfg, tcam_seeder
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS
 from tcam_wsol_video_tpu_torch.data.transforms import normalize_u8_scaled
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
@@ -61,27 +70,51 @@ def expand_compact_batch(batch: dict) -> dict:
     return batch
 
 
+@torch.no_grad()
+def student_seed_inputs(student, images: torch.Tensor, args,
+                        dtype: torch.dtype) -> dict:
+    """The seeder's inputs from the best student's maps (JAX
+    steps._student_seed_inputs): the student in eval mode at `dtype`, the
+    softmax foreground of its fcams, nan-guarded, min-max normalized and
+    nan-guarded again -> std_cam; roi_batch(ROI_LARGEST,
+    sl_tc_roi_min_size) -> roi and msk_bbox; fg_size = sum(cam roi) /
+    (H W).  All on the images' device."""
+    student.eval()
+    cams = ex.seg_cam(student(images, dtype)["fcams"])
+    cams = torch.nan_to_num(cams, nan=0.0, posinf=1.0, neginf=0.0)
+    cams = torch.nan_to_num(ex.normalize_minmax(cams), nan=0.0)
+    roi, msk_bbox, _ = roi_batch(cams, roi_method=constants.ROI_LARGEST,
+                                 p_min_area_roi=args.sl_tc_roi_min_size)
+    b, h, w = cams.shape
+    fg_size = (cams * roi).reshape(b, -1).sum(-1) / float(h * w)
+    return {"std_cam": cams, "roi": roi, "msk_bbox": msk_bbox,
+            "fg_size": fg_size}
+
+
 def make_train_step(master_loss: MasterLoss, args,
                     seeder_cfg: Optional[TCAMSeederCfg] = None,
                     classifier_model=None):
     """Returns train_step(state, batch, switches, seed_weighted,
-    generator=None, gumbel=None) -> metrics dict; state is updated in place
-    (model parameters, BN statistics, optimizer, step).
+    generator=None, gumbel=None, student=None) -> metrics dict; state is
+    updated in place (model parameters, BN statistics, optimizer, step).
 
     gumbel (B, 2, H*W) injects the seeder's fg/bg Gumbel noise; otherwise
     it is drawn from `generator`.  STD_CL takes the CE of the logits and
     draws no seeds (seed_weighted, generator and gumbel are unused).
     classifier_model, the frozen stage-1 classifier of a TCAM run without
     a CAM store: each step first recomputes batch["std_cam"] from its CAMs
-    of the labels (recompute_seed_cams)."""
-    if args.task not in (constants.STD_CL, constants.TCAM):
+    of the labels (recompute_seed_cams).  `student`, the best student's
+    model (the student seed source of JAX's make_train_step): its maps
+    replace the batch's seeder inputs (student_seed_inputs), and no CAMs
+    are recomputed."""
+    if args.task not in PORTED_TASKS:
         raise NotImplementedError(f"the {args.task} step is not ported")
     std_cl = args.task == constants.STD_CL
-    needs_seeds = not std_cl and bool(args.sl_tc)
+    needs_seeds = not std_cl and bool(args.sl_tc or args.sl_fc)
     if needs_seeds and seeder_cfg is None:
-        raise ValueError("sl_tc needs a seeder config")
+        raise ValueError("seeds need a seeder config")
     if classifier_model is not None and not needs_seeds:
-        raise ValueError("seed CAMs are recomputed only for TCAM with sl_tc")
+        raise ValueError("seed CAMs are recomputed only for seeded tasks")
     cam_fn = (make_classifier_cam_fn(classifier_model, args)
               if classifier_model is not None else None)
     dtype = DTYPES[args.compute_dtype]
@@ -89,10 +122,16 @@ def make_train_step(master_loss: MasterLoss, args,
     def train_step(state: TrainState, batch, switches: Sequence[float],
                    seed_weighted: bool,
                    generator: Optional[torch.Generator] = None,
-                   gumbel: Optional[torch.Tensor] = None) -> dict:
+                   gumbel: Optional[torch.Tensor] = None,
+                   student=None) -> dict:
         model, opt = state.model, state.optimizer
         batch = expand_compact_batch(batch)
-        if cam_fn is not None:
+        if student is not None:
+            if not needs_seeds:
+                raise ValueError("the student seed source needs seeds")
+            batch = {**batch, **student_seed_inputs(student, batch["image"],
+                                                    args, dtype)}
+        elif cam_fn is not None:
             batch = {**batch, "std_cam": recompute_seed_cams(
                 cam_fn, batch["image"], batch["label"])}
         seeds = None
@@ -113,7 +152,10 @@ def make_train_step(master_loss: MasterLoss, args,
                                 glabel=batch["label"])
         else:
             inputs = LossInputs(epoch=state.epoch, fcams=out["fcams"],
-                                raw_img=batch["raw_img"], seeds=seeds,
+                                cl_logits=logits, glabel=batch["label"],
+                                raw_img=batch["raw_img"],
+                                x_in=batch["image"],
+                                im_recon=out["im_recon"], seeds=seeds,
                                 seq_iter=batch.get("seq_iter"),
                                 frm_iter=batch.get("frm_iter"),
                                 fg_size=batch.get("fg_size"),
@@ -154,13 +196,13 @@ def make_cam_eval_step(model, args):
     """Returns eval_step(images, raw_images=None, targets=None) ->
     (cams (B, crop, crop) in [0, 1], cl_logits).  uint8 images
     (h2d_transfer=uint8) are normalized as expand_compact_batch does, and
-    serve as raw_images when those are not given.  TCAM: the softmax
-    foreground of the decoder output; STD_CL: the CAM method's map of
+    serve as raw_images when those are not given.  F_CL and TCAM: the
+    softmax foreground of the decoder output; STD_CL: the CAM method's map of
     class `targets` (the labels).  Then nan-guarded, resized to the crop
     (align_corners=False) and clipped.  With args.crf_post_process and
     raw_images (B, crop, crop, 3) in [0, 255], the CAM is then refined by
     crf_pp_iters mean-field iterations."""
-    if args.task not in (constants.STD_CL, constants.TCAM):
+    if args.task not in PORTED_TASKS:
         raise NotImplementedError(f"the {args.task} eval step is not "
                                   "ported")
     std_cl = args.task == constants.STD_CL

@@ -1,6 +1,6 @@
-"""Training engine of the STD_CL and TCAM tasks: epoch loop, evaluation,
-model selection and checkpoints (port of engine/trainer.py, the paths of
-the two tasks).
+"""Training engine of the STD_CL, F_CL and TCAM tasks: epoch loop,
+evaluation, model selection and checkpoints (port of engine/trainer.py,
+the paths of the three tasks).
 
 Each epoch: for TCAM, DecayTemp takes the epoch before the batches (it
 sets the dataset's CAM heat and whether seeds are weighted); the loss
@@ -11,6 +11,15 @@ annealed t.  Validation after each epoch updates the
 best-localization and best-classification snapshots; `fit` ends with a
 test evaluation at each.
 
+TCAM's epoch switch (sl_tc_epoch_switch_to_sl, as the JAX trainer has
+it): from that epoch on, once a best-localization snapshot exists, the
+steps take their seeds from the best student's own maps.  The student is
+a second model on the trainer's device, loaded from that snapshot and
+reloaded only when the best-localization epoch changes; each epoch's
+record names its seed source (`student`, `classifier` for the seeds
+recomputed without a store, `batch` for the batch's CAMs) and counts the
+student's reloads.
+
 The host loop records per epoch the time blocked on the pipeline (data
 wait), the pipeline's own record of the epoch (its route, stream or the
 card-resident feed, and its timings and counts: DataPipeline.epoch_stats)
@@ -19,6 +28,7 @@ recorded before and after the step, on the CPU the host clock.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -32,7 +42,7 @@ from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.core.clock import SpanClock
-from tcam_wsol_video_tpu_torch.core.config import experiment_tag
+from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS, experiment_tag
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.engine.evaluator import CamEvaluator
@@ -72,7 +82,7 @@ class Trainer:
         stage-1 classifier, whose CAMs seed a TCAM run without a CAM
         store (the train step recomputes them, as the JAX trainer's
         _recompute_cams does)."""
-        if args.task not in (constants.STD_CL, constants.TCAM):
+        if args.task not in PORTED_TASKS:
             raise NotImplementedError(f"the {args.task} trainer is not "
                                       "ported")
         self.args = args
@@ -91,10 +101,15 @@ class Trainer:
             tcam and bool(args.sl_tc)
             and getattr(train_pipe.ds, "cam_store", None) is None
             and classifier is not None)
+        # F_CL seeds with the TCAM seeder and its sl_tc_* keys, as in JAX
         self.train_step = make_train_step(
             self.master_loss, args,
-            seeder_cfg_from_args(args) if tcam else None,
+            None if args.task == constants.STD_CL
+            else seeder_cfg_from_args(args),
             classifier_model=classifier if self._recompute_cams else None)
+        # the epoch switch's student, built when it engages
+        self._student = None
+        self._student_epoch: Optional[int] = None
         self.decay_temp: Optional[DecayTemp] = None
         if tcam:
             self.decay_temp = DecayTemp(
@@ -114,6 +129,7 @@ class Trainer:
         }
         self.best_loc_state: Optional[dict] = None
         self.best_cl_state: Optional[dict] = None
+        self.student_reloads = 0
         self.records: Dict[str, list] = {"train": [], "eval": []}
         self.outd = os.path.join(args.outd, experiment_tag(args),
                                  args.exp_id)
@@ -127,19 +143,43 @@ class Trainer:
                                      self.args.keep_last_n_checkpoints)
         self.save_meters()
 
+    def _student_for(self, epoch: int) -> bool:
+        """Engages the epoch switch for `epoch` when it applies: (re)loads
+        the student from the best-localization snapshot when its epoch
+        changed (the model is copied once).  Returns whether this epoch
+        seeds from the student; counts reloads."""
+        sw_ep = self.args.sl_tc_epoch_switch_to_sl
+        if not (self.args.task == constants.TCAM and sw_ep != -1
+                and epoch >= sw_ep and self.best_loc_state is not None):
+            return False
+        best_epoch = self.meters["val_localization"].best_epoch
+        if self._student is None or self._student_epoch != best_epoch:
+            if self._student is None:
+                self._student = copy.deepcopy(self.model).requires_grad_(
+                    False)
+            self._student.load_state_dict(self.best_loc_state)
+            self._student_epoch = best_epoch
+            self.student_reloads += 1
+        return True
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         args = self.args
-        seed_weighted = False
         if self.decay_temp is not None:
             self.decay_temp.set_epoch(epoch)
             seed_weighted = (self.decay_temp.seed_tech
                              == constants.SEED_WEIGHTED)
+        else:
+            seed_weighted = args.sl_tc_seed_tech == constants.SEED_WEIGHTED
         switches = self.master_loss.switches(epoch)
         self.state.epoch = epoch
         set_lr(self.state.optimizer, self.lr_fn(epoch))
+        reloads_before = self.student_reloads
+        use_student = self._student_for(epoch)
+        student = self._student if use_student else None
 
         zero = torch.zeros((), device=self.device)
         tot_loss, n_corr, n = zero.clone(), zero.clone(), zero.clone()
+        terms: Dict[str, torch.Tensor] = {}
         clock = SpanClock(self.device)
         wait_ms: List[float] = []
         t_epoch = time.perf_counter()
@@ -156,11 +196,14 @@ class Trainer:
             begin = clock.start()
             metrics = self.train_step(self.state, dev_batch, switches,
                                       seed_weighted=seed_weighted,
-                                      generator=gen)
+                                      generator=gen, student=student)
             clock.stop(begin)
             tot_loss += metrics["loss"]
             n_corr += metrics["n_correct"]
             n += metrics["n"]
+            for k, v in metrics.items():
+                if k not in ("loss", "n_correct", "n"):
+                    terms[k] = terms.get(k, zero) + v
             i += 1
             if (args.checkpoint_save > 0
                     and self.state.step % args.checkpoint_save == 0):
@@ -180,6 +223,8 @@ class Trainer:
         out = {
             "epoch": epoch,
             "loss": float(tot_loss) / max(1, i),
+            # each loss term's mean over the epoch's steps
+            "terms": {k: float(v) / max(1, i) for k, v in terms.items()},
             "classification": 100.0 * float(n_corr) / max(1.0, float(n)),
             "n": int(n), "steps": i, "wall_ms": wall_ms,
             "median_step_ms": float(np.median(step_ms)) if step_ms else 0.0,
@@ -195,6 +240,10 @@ class Trainer:
             "heat_t": (self.decay_temp.t if self.decay_temp is not None
                        else 0.0),
             "seed_weighted": seed_weighted,
+            "seed_source": ("student" if use_student else "classifier"
+                            if self._recompute_cams else "batch"),
+            "student_epoch": self._student_epoch if use_student else None,
+            "student_reloads": self.student_reloads - reloads_before,
         }
         self.meters["train_loss"].update(out["loss"], epoch)
         self.meters["train_classification"].update(out["classification"],

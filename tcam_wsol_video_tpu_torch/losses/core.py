@@ -20,6 +20,8 @@ class LossInputs:
     cl_logits: Optional[Tensor] = None       # (B, K) classifier logits
     glabel: Optional[Tensor] = None          # (B,) int class labels
     raw_img: Optional[Tensor] = None         # (B, H, W, 3) raw [0, 255]
+    x_in: Optional[Tensor] = None            # (B, H, W, 3) the model input
+    im_recon: Optional[Tensor] = None        # (B, h, w, 3) reconstruction
     seeds: Optional[Tensor] = None           # (B, H, W) int {1, 0, ignore}
     seq_iter: Optional[Tensor] = None        # (B,) clip/video id
     frm_iter: Optional[Tensor] = None        # (B,) frame order in clip
@@ -83,7 +85,8 @@ class MasterLoss:
         total = 0.0
         holder: Dict[str, Tensor] = {}
         for loss, on in zip(self.losses, switches):
-            v = loss.compute(inputs, t) * float(on)
+            # fp32 terms, as JAX's float32 switches promote them
+            v = loss.compute(inputs, t).float() * float(on)
             holder[loss.__name__] = v
             total = total + v
         return total, holder

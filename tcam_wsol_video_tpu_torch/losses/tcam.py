@@ -7,12 +7,11 @@ from __future__ import annotations
 
 import torch
 
+from tcam_wsol_video_tpu_torch.losses import fcam
 from tcam_wsol_video_tpu_torch.losses.core import (ElementaryLoss,
                                                    LossInputs, softmax_fcams)
 from tcam_wsol_video_tpu_torch.losses.elb import elb
-from tcam_wsol_video_tpu_torch.losses.fcam import cross_entropy_ignore
-from tcam_wsol_video_tpu_torch.ops.crf import (color_dense_crf_loss,
-                                               dense_crf_loss)
+from tcam_wsol_video_tpu_torch.ops.crf import color_dense_crf_loss
 
 
 def _areas(probs: torch.Tensor, c: int) -> torch.Tensor:
@@ -20,29 +19,14 @@ def _areas(probs: torch.Tensor, c: int) -> torch.Tensor:
     return probs[..., c].reshape(probs.shape[0], -1).sum(-1)
 
 
-class SelfLearningTcams(ElementaryLoss):
-    def compute(self, inputs: LossInputs, t) -> torch.Tensor:
-        return self.lambda_ * cross_entropy_ignore(
-            inputs.fcams, inputs.seeds, self.seg_ignore_idx)
+# the terms TCAM shares with F-CAM: the same computation under the
+# TCAM names (the loss names come from the class names)
+class SelfLearningTcams(fcam.SelfLearningFcams):
+    pass
 
 
-class ConRanFieldTcams(ElementaryLoss):
-    def __init__(self, sigma_rgb=15.0, sigma_xy=100.0, scale_factor=1.0,
-                 impl="exact", n_landmarks=1024, rff_freqs=2048, **kw):
-        super().__init__(**kw)
-        self.sigma_rgb = sigma_rgb
-        self.sigma_xy = sigma_xy
-        self.scale_factor = scale_factor
-        self.impl = impl
-        self.n_landmarks = n_landmarks
-        self.rff_freqs = rff_freqs
-
-    def compute(self, inputs: LossInputs, t) -> torch.Tensor:
-        probs = softmax_fcams(inputs.fcams)
-        return self.lambda_ * dense_crf_loss(
-            inputs.raw_img, probs, self.sigma_rgb, self.sigma_xy,
-            self.scale_factor, method=self.impl,
-            n_landmarks=self.n_landmarks, rff_freqs=self.rff_freqs)
+class ConRanFieldTcams(fcam.ConRanFieldFcams):
+    pass
 
 
 class RgbJointConRanFieldTcams(ElementaryLoss):
@@ -85,20 +69,12 @@ class RgbJointConRanFieldTcams(ElementaryLoss):
             n_landmarks=self.n_landmarks, rff_freqs=self.rff_freqs)
 
 
-class EntropyTcams(ElementaryLoss):
-    def compute(self, inputs: LossInputs, t) -> torch.Tensor:
-        probs = softmax_fcams(inputs.fcams)
-        ent = -(probs * torch.log2(probs.clamp_min(1e-12))).sum(-1)
-        return self.lambda_ * ent.mean()
+class EntropyTcams(fcam.EntropyFcams):
+    pass
 
 
-class MaxSizePositiveTcams(ElementaryLoss):
-    def compute(self, inputs: LossInputs, t) -> torch.Tensor:
-        probs = softmax_fcams(inputs.fcams)
-        loss = 0.0
-        for c in (0, 1):
-            loss = loss + elb(-_areas(probs, c), t)
-        return self.lambda_ * loss * 0.5
+class MaxSizePositiveTcams(fcam.MaxSizePositiveFcams):
+    pass
 
 
 class BgSizeGreatSizeFgTcams(ElementaryLoss):

@@ -1,12 +1,15 @@
-"""UnetTCAM (port of models/unet.py), NCHW inside.
+"""UnetFCAM and its alias UnetTCAM (port of models/unet.py), NCHW inside.
 
 Encoder + classification head on the last feature + U-Net decoder
 (nearest x2 upsample, align_corners bilinear snap to the skip resolution
 on mismatch, concat, two Conv3x3+BN+ReLU) + 2-channel segmentation head
-upsampled to the input size.  forward takes NHWC images and the compute
-dtype (models/resnet.py) and returns cl_logits (B, K), fcams (B, H, W, 2)
-and the encoder features (NCHW), all in that dtype: the decoder, the
-segmentation head and the final upsample follow their inputs' dtype.
+upsampled to the input size; with im_rec, a reconstruction head on the
+decoder's output (3x3 conv, then (tanh + 1) / 2 img_range).  forward
+takes NHWC images and the compute dtype (models/resnet.py) and returns
+cl_logits (B, K), fcams (B, H, W, 2), im_recon (B, h, w, 3) at the
+decoder's resolution (None without im_rec) and the encoder features
+(NCHW), all in that dtype: the decoder, the heads and the final upsample
+follow their inputs' dtype.  F_CL and TCAM share the model, as in JAX.
 
 freeze_cl: the encoder and head run without autograd and keep their BN
 in inference mode (the JAX model's stop_gradient + enc_train=False); the
@@ -92,10 +95,24 @@ class SegmentationHead(nn.Module):
         return self.conv(x)
 
 
-class UnetTCAM(nn.Module):
+class ReconstructionHead(nn.Module):
+    """3x3 conv to 3 channels, mapped into [0, img_range] by
+    (tanh + 1) / 2 img_range."""
+
+    def __init__(self, cin: int, img_range: float = 1.0):
+        super().__init__()
+        self.conv = conv(cin, 3, 3, bias=True)
+        self.img_range = img_range
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (torch.tanh(self.conv(x)) + 1.0) * 0.5 * self.img_range
+
+
+class UnetFCAM(nn.Module):
     def __init__(self, encoder: nn.Module, pooling: str, classes: int,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 seg_h_out_channels: int = 2, freeze_cl: bool = False):
+                 seg_h_out_channels: int = 2, freeze_cl: bool = False,
+                 im_rec: bool = False, img_range: float = 1.0):
         super().__init__()
         self.freeze_cl = freeze_cl
         self.encoder = encoder
@@ -104,8 +121,11 @@ class UnetTCAM(nn.Module):
         self.decoder = UnetDecoder(encoder.out_channels, decoder_channels)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
                                                   seg_h_out_channels)
+        self.reconstruction_head = (
+            ReconstructionHead(decoder_channels[-1], img_range) if im_rec
+            else None)
 
-    def train(self, mode: bool = True) -> "UnetTCAM":
+    def train(self, mode: bool = True) -> "UnetFCAM":
         super().train(mode)
         if self.freeze_cl:
             # a frozen classifier keeps its BN running statistics
@@ -120,9 +140,17 @@ class UnetTCAM(nn.Module):
                                     and not self.freeze_cl):
             features: List[torch.Tensor] = self.encoder(x_nchw, dtype)
             cl_logits, _ = self.classification_head(features[-1])
-        fcams = self.segmentation_head(self.decoder(features))
+        dec = self.decoder(features)
+        fcams = self.segmentation_head(dec)
         if tuple(fcams.shape[-2:]) != tuple(x.shape[1:3]):
             fcams = resize_bilinear(fcams, x.shape[1:3], align_corners=True,
                                     layout="nchw")
+        im_recon = None
+        if self.reconstruction_head is not None:
+            im_recon = self.reconstruction_head(dec).permute(0, 2, 3, 1)
         return {"cl_logits": cl_logits, "fcams": fcams.permute(0, 2, 3, 1),
-                "features": features}
+                "im_recon": im_recon, "features": features}
+
+
+# TCAM's model is F-CAM's (the JAX package keeps the same alias)
+UnetTCAM = UnetFCAM

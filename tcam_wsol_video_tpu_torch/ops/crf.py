@@ -11,8 +11,9 @@ for every method here since each uses a symmetric kernel.  Methods:
   stage-2 setting).  K_nm and K_mm come from the build_knm kernel of
   ops/cuda/landmarks.py; the two consumer products stay torch.bmm in full
   fp32 (in JAX they are XLA einsums outside any kernel) and the solve is
-  ops/linalg.py.  With fused=True (or TCAM_FUSED_LANDMARKS=1) the fused
-  two-pass nystrom_filter kernel runs instead and K_nm is never written.
+  ops/linalg.py's ("cho", or "lockstep" under TCAM_LMK_SOLVER).  With
+  fused=True (or TCAM_FUSED_LANDMARKS=1) the fused two-pass nystrom_filter
+  kernel runs instead and K_nm is never written.
 - "rff": orthogonal random Fourier features, plain torch (the JAX package
   has no kernel for it).  torch cannot reproduce jax.random.PRNGKey(1234),
   so the port draws its own fixed frequencies from a seeded generator:
@@ -22,7 +23,7 @@ for every method here since each uses a symmetric kernel.  Methods:
 Environment knobs read as in the JAX package: TCAM_FUSED_LANDMARKS ("1":
 fused kernel), TCAM_LMK_GROUP (images per K_nm block, default
 min(B, 32)), TCAM_KNM_DTYPE (K_nm storage, float32 or bfloat16) and
-TCAM_LMK_SOLVER ("cho"; "lockstep" is not ported).  TCAM_KNM_BUILD and
+TCAM_LMK_SOLVER ("cho", the default, or "lockstep").  TCAM_KNM_BUILD and
 TCAM_LMK_UNROLL have no counterpart: the card always builds K_nm with its
 kernel, and eager torch already runs the groups as an unrolled loop.
 """
@@ -133,15 +134,6 @@ def _knm_dtype_default() -> torch.dtype:
     return dtype
 
 
-def _check_solver() -> None:
-    solver = os.environ.get("TCAM_LMK_SOLVER", "cho")
-    if solver == "lockstep":
-        raise NotImplementedError("TCAM_LMK_SOLVER=lockstep is not ported; "
-                                  "the port solves with cholesky ('cho')")
-    if solver != "cho":
-        raise ValueError(f"TCAM_LMK_SOLVER={solver!r}")
-
-
 def gaussian_filter_apply_landmarks(feats: torch.Tensor, vals: torch.Tensor,
                                     idx, ridge: float = 1e-2,
                                     group: Optional[int] = None,
@@ -157,8 +149,10 @@ def gaussian_filter_apply_landmarks(feats: torch.Tensor, vals: torch.Tensor,
     (default TCAM_KNM_DTYPE or float32; bf16 operands are multiplied with
     fp32 accumulation, as the JAX einsums' preferred_element_type does).
     fused (default TCAM_FUSED_LANDMARKS == "1") runs the fused two-pass
-    kernel over the whole batch instead, where K <= 8."""
-    _check_solver()
+    kernel over the whole batch instead, where K <= 8 (solving between
+    its passes with the lockstep solve, as JAX's fused kernel does).  The
+    build route solves with TCAM_LMK_SOLVER's solver (ops/linalg.py),
+    read at each call."""
     b, _, k = vals.shape
     if not isinstance(idx, torch.Tensor):
         idx = torch.tensor(np.asarray(idx), dtype=torch.long)
@@ -183,7 +177,7 @@ def gaussian_filter_apply_landmarks(feats: torch.Tensor, vals: torch.Tensor,
             knm = knm.float()
             v = v.to(knm_dtype).float()
         rhs = torch.bmm(knm.transpose(1, 2), v)             # (G, M, K)
-        alpha = linalg.batched_cholesky_solve(kmm, rhs)
+        alpha = linalg.solve(kmm, rhs)
         if knm_dtype != torch.float32:
             alpha = alpha.to(knm_dtype).float()
         outs.append(torch.bmm(knm, alpha))                   # (G, P, K)

@@ -8,9 +8,9 @@ their plain PyTorch versions.
 build_knm_pallas (tcam_wsol_video_tpu/ops/pallas/landmarks.py:219): it
 writes K_nm, or K_mm from (fm, fm), in fp32 or bf16; bound by the bytes
 of the write.  `nystrom_filter` replaces nystrom_filter_pallas
-(landmarks.py:91): pass 1 (`nystrom_rhs`) rhs = K_mn v, the Cholesky
-solve (ops/linalg.py), pass 2 (`nystrom_out`) out = K_nm alpha; K_nm is
-never written and each pass recomputes the weights, the cross term of
+(landmarks.py:91): pass 1 (`nystrom_rhs`) rhs = K_mn v, the lockstep
+Cholesky solve (ops/linalg.py), pass 2 (`nystrom_out`) out = K_nm alpha;
+K_nm is never written and each pass recomputes the weights, the cross term of
 their exponents as a tensor-core product of fp16 operands split into hi
 and lo parts (each feature must stay under 4.5e4 in magnitude); bound by
 the operations (the ex2 on MUFU).  The kernels mask the ragged edges of P
@@ -216,11 +216,11 @@ def nystrom_filter_plain(feats: torch.Tensor, vals: torch.Tensor,
                          idx: torch.Tensor,
                          ridge: float = 1e-2) -> torch.Tensor:
     """Plain version of nystrom_filter (and of the whole landmark filter
-    at fp32 K_nm): plain K_mm, rhs, solve, out."""
+    at fp32 K_nm): plain K_mm, rhs, the lockstep solve, out."""
     fm = feats[:, idx].contiguous()
     kmm = add_ridge(build_knm_plain(fm, fm), ridge)
     rhs = nystrom_rhs_plain(feats, fm, vals)
-    alpha = linalg.batched_cholesky_solve(kmm, rhs)
+    alpha = linalg.lockstep_solve(kmm, rhs)
     return nystrom_out_plain(feats, fm, alpha)
 
 
@@ -228,11 +228,13 @@ def nystrom_filter(feats: torch.Tensor, vals: torch.Tensor,
                    idx: torch.Tensor, ridge: float = 1e-2) -> torch.Tensor:
     """Fused landmark filter: feats (B, P, D<=8) centred, vals
     (B, P, K<=8) fp32, idx (M,) landmark pixel indices -> (B, P, K).
-    K_mm comes from build_knm, the two passes never write K_nm."""
+    K_mm comes from build_knm, the two passes never write K_nm; between
+    them the lockstep solve (ops/linalg.py), as JAX's
+    nystrom_filter_pallas solves there."""
     if feats.device.type == "cpu":
         return nystrom_filter_plain(feats, vals, idx, ridge)
     fm = feats[:, idx].contiguous()
     kmm = add_ridge(build_knm(fm, fm), ridge)
     rhs = nystrom_rhs(feats, fm, vals)
-    alpha = linalg.batched_cholesky_solve(kmm, rhs)
+    alpha = linalg.lockstep_solve(kmm, rhs)
     return nystrom_out(feats, fm, alpha)

@@ -342,3 +342,85 @@ def test_roi_and_compact_batches_on_the_card(card):
          for k, v in batch.items()}).items()})
     for k, w in want.items():
         assert torch.equal(got[k].cpu(), w), k
+
+
+# the lockstep solve against cholesky_ex on ridge-regularized kernel
+# systems, relative L2 (tests/test_torch_landmarks.py's SOLVE_RTOL)
+SOLVE_RTOL = 5e-4
+
+
+@pytest.mark.parametrize("g,m", [(4, 1024), (3, 300)])
+def test_lockstep_solve_on_the_card_matches_cholesky(card, g, m):
+    from tcam_wsol_video_tpu_torch.ops import linalg
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn((g, m, 5), generator=gen, device=card)
+    a = landmarks.add_ridge(landmarks.build_knm_plain(x, x), 1e-2)
+    b = torch.randn((g, m, 2), generator=gen, device=card)
+    with linalg.record_info() as infos:
+        want = linalg.batched_cholesky_solve(a, b)
+    got = linalg.lockstep_solve(a, b)
+    torch.cuda.synchronize()
+    assert all(int(i.abs().max()) == 0 for i in infos)
+    assert float((got - want).norm() / want.norm()) < SOLVE_RTOL
+    cpu = linalg.lockstep_solve(a.cpu(), b.cpu())
+    assert float((got.cpu() - cpu).norm() / cpu.norm()) < SOLVE_RTOL
+
+
+# an F_CL step's loss terms through kernel 1 against the same step with
+# the plain filter: the CRF term carries the filter's relative error
+STEP_RTOL = 2e-4
+
+
+def test_f_cl_step_through_the_exact_kernel_matches_plain(card,
+                                                          monkeypatch):
+    """One F_CL step at float32 (every F-CAM loss and im_rec, the exact
+    CRF) on the card launches kernel 1 once; the same step from the same
+    state with the plain filter gives the same loss terms."""
+    import copy
+    from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
+    from tcam_wsol_video_tpu_torch.core.config import TCAMConfig
+    from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
+    from tcam_wsol_video_tpu_torch.engine.state import TrainState
+    from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
+    from tcam_wsol_video_tpu_torch.losses.build import get_loss
+    from tcam_wsol_video_tpu_torch.models import resnet
+    from tcam_wsol_video_tpu_torch.models.unet import UnetFCAM
+    args = TCAMConfig(task="F_CL", arch="UnetFCAM", crop_size=64,
+                      batch_size=2, compute_dtype="float32", im_rec=True,
+                      sl_fc=True, crf_fc=True, entropy_fc=True,
+                      max_sizepos_fc=True, freeze_cl=True, sl_tc_min=3,
+                      sl_tc_max=3)
+    torch.manual_seed(0)
+    model = UnetFCAM(resnet.ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10,
+                     freeze_cl=True, im_rec=True).to(card)
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {"image": torch.randn((2, 64, 64, 3), generator=g, device=card),
+             "raw_img": torch.rand((2, 64, 64, 3), generator=g,
+                                   device=card) * 255.0,
+             "label": torch.tensor([1, 4], device=card),
+             "std_cam": torch.rand((2, 64, 64), generator=g, device=card),
+             "roi": torch.ones((2, 64, 64), dtype=torch.int32, device=card)}
+    master = get_loss(args)
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(bilateral, "_launch",
+                                bilateral.gaussian_filter_apply_plain)
+        m = copy.deepcopy(model)
+        state = TrainState(m, build_optimizer(args, m, args.lr),
+                           args.elb_init_t)
+        bilateral.counts.reset()
+        out[route] = make_train_step(master, args,
+                                     seeder_cfg_from_args(args))(
+            state, batch, master.switches(0), True,
+            generator=torch.Generator(device=card).manual_seed(1))
+        torch.cuda.synchronize()
+        assert (bilateral.counts.kernel, bilateral.counts.plain) == (
+            (1, 0) if route == "kernel" else (0, 1))
+    assert set(out["kernel"]) >= {"img_reconstruction", "self_learning_fcams",
+                                  "con_ran_field_fcams", "entropy_fcams",
+                                  "max_size_positive_fcams"}
+    for k, v in out["plain"].items():
+        if v.is_floating_point():
+            assert abs(float(out["kernel"][k]) - float(v)) <= \
+                STEP_RTOL * abs(float(v)), k

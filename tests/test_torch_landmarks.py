@@ -3,8 +3,10 @@ versions, the Cholesky solve and the random-feature filter.
 
 The port's functions (plain versions on the CPU) are held against the
 JAX package: the landmark grid, _kmat_batched and build_knm_pallas,
-gaussian_filter_apply_landmarks (cho solver), nystrom_filter_pallas and
-batched_block_cholesky_solve, the Pallas kernels in interpret mode as the
+gaussian_filter_apply_landmarks (cho and lockstep solvers),
+nystrom_filter_pallas (whose solve is the lockstep one, as the port's
+fused route's) and batched_block_cholesky_solve, the Pallas kernels in
+interpret mode as the
 JAX package's own tests run them.  Inputs are made with numpy from a
 seed and run in float32 on both sides; sizes stay at 24x24 and M <= 512.
 """
@@ -135,12 +137,59 @@ def test_landmark_filter_bf16_knm_and_env_knobs(monkeypatch):
 
 
 def test_lockstep_solver_is_not_ported(monkeypatch):
-    f, vals = _filter_inputs(1)
-    idx = tcrf._landmark_grid_indices(24, 24, 128)
-    monkeypatch.setenv("TCAM_LMK_SOLVER", "lockstep")
-    with pytest.raises(NotImplementedError):
-        tcrf.gaussian_filter_apply_landmarks(
-            torch.from_numpy(f), torch.from_numpy(vals), idx)
+    """The name predates the port of the lockstep solver: now
+    TCAM_LMK_SOLVER=lockstep selects it at call time, and the build
+    route's filter equals JAX's under solver="lockstep" (121 and 506
+    landmarks, padded to 128 and 512 with identity rows on both sides);
+    another value is refused."""
+    f, vals = _filter_inputs(2, seed=6)
+    tf, tv = torch.from_numpy(f), torch.from_numpy(vals)
+    for m_req in (128, 512):
+        idx = np.asarray(jcrf._landmark_grid_indices(24, 24, m_req))
+        want = np.asarray(jcrf.gaussian_filter_apply_landmarks(
+            jnp.asarray(f), jnp.asarray(vals), jnp.asarray(idx),
+            solver="lockstep"))
+        monkeypatch.setenv("TCAM_LMK_SOLVER", "lockstep")
+        with linalg.record_info() as infos:
+            got = tcrf.gaussian_filter_apply_landmarks(tf, tv, idx,
+                                                       fused=False).numpy()
+        assert infos == []                  # no cholesky_ex call
+        assert _rel(got, want) < FILTER_RTOL
+        monkeypatch.setenv("TCAM_LMK_SOLVER", "cho")
+        cho = tcrf.gaussian_filter_apply_landmarks(tf, tv, idx, fused=False)
+        assert _rel(cho.numpy(), want) < FILTER_RTOL
+    monkeypatch.setenv("TCAM_LMK_SOLVER", "qr")
+    with pytest.raises(ValueError):
+        tcrf.gaussian_filter_apply_landmarks(tf, tv, idx, fused=False)
+
+
+@pytest.mark.parametrize("m", [128, 256, 300])
+def test_lockstep_solve_matches_jax(m):
+    """The port's lockstep solve against JAX's batched_block_cholesky_solve
+    on ridge-regularized Gaussian kernel systems (M = 300 padded to 384
+    with identity rows, as the landmark filter pads it), and against
+    float64 numpy."""
+    rng = np.random.default_rng(m)
+    g, k = 3, 2
+    x = rng.standard_normal((g, m, 5)).astype(np.float32)
+    d2 = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    a = (np.exp(-0.5 * d2) + 1e-2 * np.eye(m)).astype(np.float32)
+    b = rng.standard_normal((g, m, k)).astype(np.float32)
+    mp = -(-m // linalg.NB) * linalg.NB
+    ap = np.tile(np.eye(mp, dtype=np.float32), (g, 1, 1))
+    ap[:, :m, :m] = a
+    bp = np.pad(b, ((0, 0), (0, mp - m), (0, 0)))
+    want = np.asarray(batched_block_cholesky_solve(jnp.asarray(ap),
+                                                   jnp.asarray(bp)))[:, :m]
+    got = linalg.lockstep_solve(torch.from_numpy(a),
+                                torch.from_numpy(b)).numpy()
+    exact = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+    assert _rel(got, want) < SOLVE_RTOL
+    assert _rel(got, exact) < SOLVE_RTOL
+    if m % linalg.NB:
+        with pytest.raises(ValueError):
+            linalg.batched_block_cholesky_solve(torch.from_numpy(a),
+                                                torch.from_numpy(b))
 
 
 @pytest.mark.parametrize("m_req", [128, 512])

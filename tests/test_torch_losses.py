@@ -5,7 +5,8 @@ Each loss's value and its gradient with respect to the decoder logits
 are held against the JAX package (jax.grad) on the same inputs, made with
 numpy from a seed, in float32; the temporal joint CRF runs through the
 exact filter and the landmark filter.  get_loss_tcam is held against the
-JAX get_loss for the order and the names of the terms it wires.
+JAX get_loss for the order and the names of the terms it wires (image
+reconstruction included).
 """
 import jax
 import jax.numpy as jnp
@@ -145,7 +146,17 @@ def test_get_loss_tcam_wires_the_terms_as_jax():
 
 
 def test_get_loss_tcam_refuses_what_it_cannot_build():
-    with pytest.raises(NotImplementedError):
-        get_loss_tcam(_all_flags(im_rec=True))
+    # im_rec was refused before the reconstruction head was ported: it now
+    # wires img_reconstruction first, with JAX's lambda and ELB switch
+    targs = _all_flags(im_rec=True, im_rec_lambda=0.3, im_rec_elb=True)
+    cfg = get_config(C.YTOV1)
+    cfg.update(targs.__dict__)
+    jml = jget_loss(HParams(cfg))
+    tml = get_loss_tcam(targs)
+    assert ([l.__name__ for l in tml.losses]
+            == [l.__name__ for l in jml.losses])
+    assert tml.losses[0].__name__ == "img_reconstruction"
+    assert (tml.losses[0].lambda_, tml.losses[0].use_elb) == (
+        jml.losses[0].lambda_, jml.losses[0].use_elb) == (0.3, True)
     with pytest.raises(ValueError):
         get_loss_tcam(_all_flags(knn_tc=0))

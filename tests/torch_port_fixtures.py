@@ -19,11 +19,13 @@ CLASSES = 10
 CROP = 32
 
 
-def jax_model(freeze_cl: bool = True, dtype=jnp.float32) -> JUnetTCAM:
-    """The small UnetTCAM computing in `dtype` (fp32 parameters)."""
+def jax_model(freeze_cl: bool = True, dtype=jnp.float32,
+              im_rec: bool = False, img_range: float = 1.0) -> JUnetTCAM:
+    """The small UnetTCAM (UnetFCAM) computing in `dtype` (fp32
+    parameters), with the reconstruction head when im_rec."""
     return JUnetTCAM(encoder=JResNetWSOL(layers=LAYERS, dtype=dtype),
                      pooling="WGAP", classes=CLASSES, freeze_cl=freeze_cl,
-                     dtype=dtype)
+                     im_rec=im_rec, img_range=img_range, dtype=dtype)
 
 
 def jax_variables(model, seed: int = 0) -> dict:
@@ -55,9 +57,10 @@ def torch_classifier(variables: dict) -> STDClassifier:
     return model
 
 
-def torch_model(variables: dict, freeze_cl: bool = True) -> UnetTCAM:
+def torch_model(variables: dict, freeze_cl: bool = True,
+                im_rec: bool = False, img_range: float = 1.0) -> UnetTCAM:
     model = UnetTCAM(ResNetWSOL(layers=LAYERS), "WGAP", CLASSES,
-                     freeze_cl=freeze_cl)
+                     freeze_cl=freeze_cl, im_rec=im_rec, img_range=img_range)
     load_flax_variables(model, variables)
     return model
 
