@@ -84,10 +84,29 @@ Phases (any failure raises and the script exits non-zero):
      exact CRF) through cli/train.main for 2 epochs, kernel 1 once a
      step, each loss term printed; then cli/evaluate.main on its
      best-localization snapshot against the trainer's test pass;
- 16. the landmark filter's solve at path B's shapes: the lockstep solve
+ 16. path J (on path D's set): stage 1 (cli/train.main STD_CL, bs 32 /
+     224 px, 1 epoch, the default dtypes) on VGG16/GAP,
+     InceptionV3/WildCat (its SPG dropout live), ResNet-101/LSE and
+     ResNet-50/MaxPool, no kernel launched; cli/evaluate.main on the
+     ResNet-101 snapshot against the trainer's test pass; and
+     cli/dump_cams.main from the VGG16/GAP snapshot (the built-in route,
+     640 CAMs);
+ 17. path K: stage 2 (path D's flags, exact CRF) on VGG16 over path J's
+     store, from its VGG16 folder, 1 epoch: the decoder's center block,
+     kernel 1 once a step; then path A's step (2 steps, the first warms
+     up) of UnetTCAM on InceptionV3 and on ResNet-101, kernel 1 once a
+     step;
+ 18. the CAM-method phase: the stage-1 ResNet-50/WGAP model of path E's
+     best-localization snapshot, the STD_CL eval step of each of its 9
+     methods on path D's test frames, TF32 off, timed on the card (32
+     images; ScoreCAM 2 images, SSCAM and ISCAM 1 image at 2 samples)
+     and held against the same eval step on the CPU within 1e-3 (the
+     first 8 images; the ScoreCAM family on the same frames at 32 px),
+     the noise of SmoothGradCAM++ and SSCAM drawn once and injected;
+ 19. the landmark filter's solve at path B's shapes: the lockstep solve
      against cholesky_ex, both timed, and the fused route (lockstep) at
      batch 32 against its plain version;
- 17. time each kernel (and the exact filter's per-call spread and
+ 20. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -525,11 +544,11 @@ class CrfTimer:
 
 
 def build_main_path(seed: int, production: bool = False,
-                    dtype: str = "bfloat16"):
-    """The recipe's model, optimizer, steps, batch and seeder generator
-    (production: the production stage-2 recipe, landmark CRF) at
-    compute_dtype `dtype`; two builds from one seed start from the same
-    state."""
+                    dtype: str = "bfloat16", encoder: str = "resnet50"):
+    """The recipe's model (on `encoder`), optimizer, steps, batch and
+    seeder generator (production: the production stage-2 recipe, landmark
+    CRF) at compute_dtype `dtype`; two builds from one seed start from the
+    same state."""
     from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
     from tcam_wsol_video_tpu_torch.core.config import (
         stage2_tcam_production, stage2_tcam_recipe)
@@ -543,7 +562,8 @@ def build_main_path(seed: int, production: bool = False,
         create_model_from_args
 
     args = (stage2_tcam_production if production
-            else stage2_tcam_recipe)(seed=seed, compute_dtype=dtype)
+            else stage2_tcam_recipe)(seed=seed, compute_dtype=dtype,
+                                     encoder_name=encoder)
     kc = KeyChain(seed)
     torch.manual_seed(seed)
     model = create_model_from_args(args, device="cuda")
@@ -1769,6 +1789,326 @@ def phase_f_cl(seed: int, data: dict) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# ------------------- path J: stage 1 on the other encoders and heads
+# (encoder, pooling head, CAM method): each new encoder, and each head
+# that builds maps, once
+PATH_J_PAIRS = (("vgg16", "GAP", "GAP"),
+                ("inceptionv3", "WildCatCLHead", "WildCat"),
+                ("resnet101", "LogSumExpPool", "LogSumExpPool"),
+                ("resnet50", "MaxPool", "MaxPool"))
+PATH_J_EPOCHS = 1
+# the snapshot that cli/evaluate.main scores against the trainer
+PATH_J_EVALUATED = "resnet101"
+PATH_K_EPOCHS = 1
+
+
+def path_j_flags(root: str, outd: str, encoder: str, pooling: str,
+                 method: str) -> list:
+    """The stage-1 command of path E on another encoder and head,
+    PATH_J_EPOCHS epochs."""
+    return common_flags(root) + [
+        "--task", "STD_CL", "--encoder_name", encoder, "--spatial_pooling",
+        pooling, "--method", method, "--batch_size", "32",
+        "--eval_batch_size", "32", "--max_epochs", str(PATH_J_EPOCHS),
+        "--lr", "0.001", "--checkpoint_save", "0", "--outd", outd,
+        "--exp_id", "j"]
+
+
+def phase_stage1_encoders(seed: int, data: dict) -> dict:
+    """Path J: cli/train.main STD_CL on each pair of PATH_J_PAIRS (counts
+    reset just before: no kernel runs in stage 1), cli/evaluate.main on
+    the PATH_J_EVALUATED snapshot against the trainer's test pass, and
+    cli/dump_cams.main from the VGG16/GAP snapshot (the built-in route)
+    into the store that path K reads."""
+    from tcam_wsol_video_tpu_torch.cli import dump_cams as cli_dump
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_eval
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
+
+    root = data["root"]
+    outd = os.path.join(root, "exps_j")
+    reset_counts()
+    runs = {}
+    for enc, pool, method in PATH_J_PAIRS:
+        tag = f"path J {enc}/{pool}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cli_train.main(path_j_flags(root, outd, enc, pool, method))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        rep = report_trainer(tag, out, PATH_J_EPOCHS)
+        tr = out["records"]["train"]
+        runs[enc] = {
+            "pooling": pool, "method": method, "wall_s": wall_s,
+            "outd": out["outd"], "train": tr,
+            "median_step_ms": [r["median_step_ms"] for r in tr],
+            "data_wait_ms_per_step": [r["data_wait_ms_per_step"]
+                                      for r in tr],
+            "test_best_loc": rep["best"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"[{tag}] cli/train.main {wall_s:.2f} s, peak "
+              f"{runs[enc]['peak_mem_gib']:.2f} GiB", flush=True)
+    launches = read_counts()
+    check(all(c["kernel"] == 0 and c["plain"] == 0
+              for c in launches.values()),
+          f"path J: stage 1 launched a CRF filter: {launches}")
+
+    enc = PATH_J_EVALUATED
+    r = runs[enc]
+    t0 = time.perf_counter()
+    ev = cli_eval.main(common_flags(root) + [
+        "--task", "STD_CL", "--encoder_name", enc, "--spatial_pooling",
+        r["pooling"], "--method", r["method"], "--eval_batch_size", "32",
+        "--exp_dir", r["outd"], "--split", "test"])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    want = r["test_best_loc"]
+    gaps = {s: abs(ev[f"maxboxacc_{s}"] - want[f"maxboxacc_{s}"])
+            for s in (30, 50, 70)}
+    share = 100.0 / 320
+    print(_eval_line(f"path J {enc} evaluate test best_localization",
+                     {**ev, **ev["timing"]})
+          + "; |evaluate - trainer| at IoU 30/50/70 "
+          + "/".join(f"{g:.4f}" for g in gaps.values())
+          + f" (tol {share:.4f}, one image); cli/evaluate.main {ev_s:.2f} s",
+          flush=True)
+    check(ev["n_images"] == 320 and max(gaps.values()) <= share,
+          f"path J: evaluate is {gaps} off the trainer's test pass")
+
+    store_dir = os.path.join(root, "cam_store_j")
+    dump = cli_dump.main(common_flags(root) + [
+        "--task", "STD_CL", "--encoder_name", "vgg16", "--spatial_pooling",
+        "GAP", "--method", "GAP", "--exp_dir", runs["vgg16"]["outd"],
+        "--out", store_dir])
+    torch.cuda.synchronize()
+    store = CamStore(store_dir)
+    th = store.thresholds or {}
+    cams = [store.load_cam(f) for f in th]
+    print(f"[path J dump] vgg16/GAP built-in route: {dump['n_frames']} "
+          f"frames of the best_localization snapshot (step {dump['step']}) "
+          f"in {dump['seconds']:.2f} s, {dump['frames_per_s']:.1f} "
+          f"frames/s; CAMs {cams[0].shape}, {len(th)} thresholds in "
+          f"[{min(th.values()):.4f}, {max(th.values()):.4f}]", flush=True)
+    check(dump["n_frames"] == len(th) == 640
+          and all(c.shape == (28, 28) and 0.0 <= c.min() and c.max() <= 1.0
+                  for c in cams)
+          and sum(float(c.max()) > 0.0 for c in cams) > 0,
+          "path J: the built-in dump's store")
+    return {"runs": runs, "launches": launches, "evaluated": enc,
+            "evaluate": dict(ev), "evaluate_gap": gaps,
+            "evaluate_s": ev_s, "store": store_dir,
+            "dump": {k: v for k, v in dump.items() if k != "store"}}
+
+
+def phase_tcam_vgg16(seed: int, data: dict, pj: dict) -> dict:
+    """Path K: cli/train.main TCAM (path D's flags, exact CRF) on VGG16
+    over path J's built-in store, from its VGG16/GAP stage-1 folder,
+    PATH_K_EPOCHS epochs, counts reset just before: kernel 1 once a step
+    under the decoder with the center block."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
+    from tcam_wsol_video_tpu_torch.core import constants
+
+    root = data["root"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(path_d_flags(
+        root, pj["store"], os.path.join(root, "exps_k"),
+        pretrained=pj["runs"]["vgg16"]["outd"], epochs=PATH_K_EPOCHS,
+        exp_id="k") + ["--encoder_name", "vgg16", "--spatial_pooling",
+                       "GAP", "--method", "GAP"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    rep = report_trainer("path K", out, PATH_K_EPOCHS)
+    steps = rep["steps"]
+    k = launches["bilateral_exact"]["kernel"]
+    _, snap = ckpt.load_best_model(os.path.join(out["outd"],
+                                                constants.BEST_LOC))
+    center = sorted(n for n in snap["components"]["decoder"]
+                    if n.startswith("center."))
+    print(f"[path K launches] bilateral_exact {k} in {steps} steps; "
+          f"{launches}; decoder center block {len(center)} tensors; "
+          f"cli/train.main {wall_s:.2f} s", flush=True)
+    check(k == steps, f"path K: the exact CRF kernel launched {k} times in "
+          f"{steps} steps")
+    check(all(c["plain"] == 0 for c in launches.values()),
+          "path K: a plain version ran")
+    check(len(center) > 0, "path K: the VGG decoder has no center block")
+    tr = out["records"]["train"]
+    return {"wall_s": wall_s, "launches": launches, "steps": steps,
+            "train": tr, "test_best_loc": rep["best"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_unet_encoders(seed: int, steps: int = 2) -> dict:
+    """Path A's step (exact CRF, bs 32 / 224 px, bf16) on UnetTCAM with
+    the InceptionV3 and the ResNet-101 encoder: `steps` steps each (the
+    first warms up), counts reset just before, kernel 1 once a step."""
+    from tcam_wsol_video_tpu_torch.ops.cuda import bilateral
+
+    out = {}
+    for enc in ("inceptionv3", "resnet101"):
+        tag = f"UnetTCAM {enc}"
+        (args, model, opt, state, train_step, _, batch, gen,
+         switches) = build_main_path(seed, encoder=enc)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with CrfTimer(bilateral) as timer:
+            records = run_steps(train_step, state, batch, switches, gen,
+                                steps, timer, tag)
+        launches = read_counts()
+        k = launches["bilateral_exact"]["kernel"]
+        check(k == steps, f"{tag}: the exact CRF kernel launched {k} times "
+              f"in {steps} steps")
+        check(all(c["plain"] == 0 for c in launches.values()),
+              f"{tag}: a plain version ran")
+        out[enc] = {"steps": records, "launches": launches,
+                    "step_ms": records[-1]["step_ms"],
+                    "crf_ms": records[-1]["crf_ms"],
+                    "peak_mem_gib": torch.cuda.max_memory_allocated()
+                    / 2 ** 30}
+        print(f"[{tag}] step {out[enc]['step_ms']:.2f} ms (after "
+              f"{steps - 1} warm-up), kernel 1 {out[enc]['crf_ms']:.2f} ms "
+              f"of it, peak {out[enc]['peak_mem_gib']:.2f} GiB", flush=True)
+        del state, model, opt, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- the CAM-method phase
+# the eval step's normalized maps, card (TF32 off) against the CPU on the
+# same weights, inputs and noise: fp32 summed in other orders through ~50
+# layers, min-max normalized
+CAM_METHOD_ATOL = 1e-3
+# (images, samples) of the ScoreCAM family: 2048 masked forwards an image
+# per sample at full width; JAX's tests/test_scorecam_e2e.py reduction
+SCORE_REDUCTION = {"ScoreCAM": (2, 1), "SSCAM": (1, 2), "ISCAM": (1, 2)}
+# the CPU holds the ScoreCAM family on the same frames resized to this
+# crop (the same model, images, samples and noise draws; every 32-channel
+# chunk of the 2048): at 224 px the CPU would need ~12000 ResNet-50
+# forwards (~470 TFLOP)
+SCORE_HOLD_CROP = 32
+# the other methods: the card runs the batch of 32, the CPU holds its
+# first CAM_HOLD_IMAGES maps (the eval step treats each image alone: BN
+# in inference mode, one gradient of a sum of per-image logits)
+CAM_HOLD_IMAGES = 8
+
+
+def phase_cam_methods(seed: int, data: dict, s1_outd: str) -> dict:
+    """Every WGAP CAM method's STD_CL eval step on one batch of path D's
+    test frames, with the stage-1 ResNet-50/WGAP model of path E's
+    best-localization snapshot: timed on the card, held against the same
+    eval step on the CPU (TF32 off; the noise of SmoothGradCAM++ and SSCAM
+    drawn once and injected)."""
+    import copy
+
+    from tcam_wsol_video_tpu_torch.cli.train import (eval_dataset,
+                                                     resolve_metadata_root)
+    from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.core.config import (finalize,
+                                                       stage1_cam_recipe)
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.data.pipeline import DataPipeline
+    from tcam_wsol_video_tpu_torch.engine.steps import make_cam_eval_step
+    from tcam_wsol_video_tpu_torch.models.factory import \
+        create_model_from_args
+    from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
+
+    root = data["root"]
+    base = resolve_metadata_root(stage1_cam_recipe(
+        crop_size=224, resize_size=256, data_root=root,
+        metadata_root=os.path.join(root, "folds"), seed=seed))
+    kc = KeyChain(seed)
+    pipe = DataPipeline(eval_dataset(base, kc, constants.TESTSET), 32, kc,
+                        shuffle=False, device="cuda")
+    batch = next(iter(pipe.epoch(0)))
+    images, labels = batch["image"], batch["label"]
+    model = create_model_from_args(base, device="cuda")
+    step, payload = ckpt.load_best_model(os.path.join(s1_outd,
+                                                      constants.BEST_LOC))
+    ckpt.load_components(model, payload["components"])
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(seed)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    try:
+        for method in (m for m in constants.CAM_METHODS
+                       if constants.METHOD_2_POOLINGHEAD[m]
+                       == constants.WGAP):
+            n, samples = SCORE_REDUCTION.get(method, (images.shape[0], 1))
+            args = finalize(base.replace(method=method))
+            args.sscam_num_samples = args.iscam_num_samples = samples
+            x, y = images[:n], labels[:n]
+
+            def noise_for(size):
+                if method == constants.METHOD_SMOOTHGRADCAMPP:
+                    k, std = 4, 0.3
+                elif method == constants.METHOD_SSCAM:
+                    k, std = samples, 2.0
+                else:
+                    return None
+                return torch.from_numpy(std * rng.standard_normal(
+                    (k, n, size, size, 3)).astype(np.float32))
+
+            noise = noise_for(224)
+            step_fn = make_cam_eval_step(model, args)
+            dev_noise = None if noise is None else noise.cuda()
+            score = method in SCORE_REDUCTION
+            cams = []
+            ms = cuda_call_ms(lambda: cams.append(step_fn(
+                x, targets=y, noise=dev_noise)[0]),
+                reps=1 if score else 3, warmup=0 if score else 1)
+            cam = cams[-1]
+            check(tuple(cam.shape) == (n, 224, 224)
+                  and bool(torch.isfinite(cam).all()) and cam.min() >= 0.0
+                  and cam.max() <= 1.0, f"CAM method {method}: the map")
+            hold = {"crop": 224}
+            if score:
+                hc = SCORE_HOLD_CROP
+                xs = resize_bilinear(x, (hc, hc), align_corners=False)
+                hargs = args.replace(crop_size=hc)
+                hargs.sscam_num_samples = hargs.iscam_num_samples = samples
+                hnoise = noise_for(hc)
+                card, _ = make_cam_eval_step(model, hargs)(
+                    xs, targets=y, noise=None if hnoise is None
+                    else hnoise.cuda())
+                want, _ = make_cam_eval_step(cpu_model, hargs)(
+                    xs.cpu(), targets=y.cpu(), noise=hnoise)
+                hold = {"crop": hc}
+            else:
+                k = CAM_HOLD_IMAGES
+                card = cam[:k]
+                want, _ = make_cam_eval_step(cpu_model, args)(
+                    x[:k].cpu(), targets=y[:k].cpu(),
+                    noise=None if noise is None else noise[:, :k])
+                hold["images"] = k
+            err = float((card.cpu() - want).abs().max())
+            rows[method] = {"images": n, "samples": samples,
+                            "ms": statistics.median(ms),
+                            "ms_per_image": statistics.median(ms) / n,
+                            "max_abs_err": err, "hold_crop": hold["crop"],
+                            "hold_images": hold.get("images", n)}
+            print(f"[cam methods] {method}: {n} images x {samples} "
+                  f"sample(s), {rows[method]['ms_per_image']:.3f} ms/image "
+                  f"on the card (TF32 off); against the CPU on "
+                  f"{rows[method]['hold_images']} images at {hold['crop']} "
+                  f"px: max |diff| {err:.3e} (tol {CAM_METHOD_ATOL})",
+                  flush=True)
+            check(err <= CAM_METHOD_ATOL, f"CAM method {method}: the card "
+                  f"is {err:.3e} off the CPU")
+            check(bool(torch.isfinite(card).all()) and card.min() >= 0.0
+                  and card.max() <= 1.0, f"CAM method {method}: map range")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return {"snapshot_step": step, "methods": rows}
+
+
 # ---------------------------------------------- the landmark filter's solve
 # the lockstep solve against cholesky_ex, relative L2
 # (tests/test_torch_landmarks.py's SOLVE_RTOL)
@@ -2224,7 +2564,13 @@ def main(argv=None) -> int:
                                           result["chain"]["stage1_outd"])
     result["recipe_yaml"] = phase_recipe_yaml(SEED, data)
     result["f_cl"] = phase_f_cl(SEED, data)
+    result["stage1_encoders"] = phase_stage1_encoders(SEED, data)
+    result["tcam_vgg16"] = phase_tcam_vgg16(SEED, data,
+                                            result["stage1_encoders"])
+    result["cam_methods"] = phase_cam_methods(
+        SEED, data, result["chain"]["stage1_outd"])
     shutil.rmtree(data["root"])
+    result["unet_encoders"] = phase_unet_encoders(SEED)
     result["roi"] = phase_roi(SEED)
     result["solve"] = phase_solve(SEED)
     result["checks"].append(result["solve"]["fused_check"])
@@ -2265,6 +2611,8 @@ def main(argv=None) -> int:
             "bilateral_exact"]["kernel"],
         "launches_path_i": result["f_cl"]["launches"]["bilateral_exact"][
             "kernel"],
+        "launches_path_k": result["tcam_vgg16"]["launches"][
+            "bilateral_exact"]["kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -2380,6 +2728,30 @@ def main(argv=None) -> int:
                      for s in (30, 50, 70))
           + ", evaluate gap " + "/".join(
               f"{g:.4f}" for g in pi["evaluate_gap"].values()), flush=True)
+    pj, pk, ue = (result["stage1_encoders"], result["tcam_vgg16"],
+                  result["unet_encoders"])
+    for enc, r in pj["runs"].items():
+        print(f"[summary] path J {enc}/{r['pooling']}: median step "
+              f"{per_epoch(r['train'], 'median_step_ms')} ms, data wait "
+              f"{per_epoch(r['train'], 'data_wait_ms_per_step')} ms/step, "
+              f"test MaxBoxAcc 30/50/70 " + "/".join(
+                  f"{r['test_best_loc'][f'maxboxacc_{s}']:.2f}"
+                  for s in (30, 50, 70))
+              + (", evaluate gap " + "/".join(
+                  f"{g:.4f}" for g in pj["evaluate_gap"].values())
+                 if enc == pj["evaluated"] else ""), flush=True)
+    print(f"[summary] path K (TCAM on VGG16, center block): median step "
+          f"{per_epoch(pk['train'], 'median_step_ms')} ms, data wait "
+          f"{per_epoch(pk['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"bilateral_exact {pk['launches']['bilateral_exact']['kernel']} "
+          f"launches in {pk['steps']} steps; UnetTCAM step " + ", ".join(
+              f"{e} {r['step_ms']:.2f} ms" for e, r in ue.items()),
+          flush=True)
+    print("[summary] CAM methods (ms/image on the card, TF32 off): "
+          + ", ".join(f"{m} {r['ms_per_image']:.3f} ({r['images']} x "
+                      f"{r['samples']})"
+                      for m, r in result["cam_methods"]["methods"].items()),
+          flush=True)
     print(f"[summary] solve G=32 M=1024: lockstep {sv['lockstep_ms']:.3f} ms"
           f", cholesky_ex {sv['cholesky_ex_ms']:.3f} ms, rel "
           f"{sv['lockstep_vs_cholesky_rel']:.3e}", flush=True)

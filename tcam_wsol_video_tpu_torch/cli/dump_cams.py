@@ -13,7 +13,12 @@ the CPU, nvJPEG on the card), normalized (in the JAX dump's order for
 --h2d_transfer: make_dump_step), and its CAM for the shot's
 label resized on the device to cam_size x cam_size and clipped to [0, 1].
 The classifier computes in --compute_dtype (default bfloat16, as the JAX
-dump builds its model); its fc-weight CAMs come out in float32.
+dump builds its model); its CAMs come out in float32: the fc-weight CAM
+of a WGAP head (--method CAM), or the map of a head that builds them
+(--method GAP / MaxPool / LogSumExpPool / WildCat, the built-in route).
+The other methods of a WGAP head are refused with a ValueError that
+names the method (JAX's dump sends them to the built-in route, which
+fails on WGAP's missing maps).
 The store gets one .npy per frame and roi_thresholds.txt (`dump_threshold_np`
 of each CAM).  The host stores batch i and takes its thresholds while
 batch i + 1 computes.  It runs on the card unless --device cpu is given;
@@ -29,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tcam_wsol_video_tpu_torch.cams.extractors import BUILTIN_CAM_METHODS
 from tcam_wsol_video_tpu_torch.cli.train import (device_from, eval_dataset,
                                                  resolve_metadata_root)
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
@@ -134,6 +140,11 @@ def dump_cams(args: TCAMConfig, exp_dir: str, out_dir: str,
     'n_frames', 'seconds', 'frames_per_s', 'host_s' (saving the CAMs and
     their thresholds)}."""
     device = torch.device(device)
+    if args.method not in ((constants.METHOD_CAM,)
+                           + BUILTIN_CAM_METHODS):
+        raise ValueError(
+            f"the dump stores the CAM method's or a built-in head's maps; "
+            f"method {args.method} is neither")
     args = resolve_metadata_root(args)
     data_root, frames = train_frames(args)
     model, step, _ = load_classifier(args, exp_dir, device)

@@ -65,7 +65,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     logger = ExpLogger(ns.exp_dir)
     logger.log(f"evaluating {args.eval_checkpoint_type} (step {step}) on "
                f"{ns.split}")
-    res = CamEvaluator(model, args, ds, pipe, ns.split, fast=False).run()
+    res = CamEvaluator(model, args, ds, pipe, ns.split, fast=False,
+                       generator=kc.key("eval", ns.split,
+                                        device=device)).run()
     res.pop("curves", None)
     printable = {k: v for k, v in res.items()
                  if isinstance(v, (int, float, list))}

@@ -6,10 +6,10 @@ package reads the same in the other, and `parse_args` takes the same
 command line: `--key value` flags (booleans as true/false, lists as
 [a, b]), `--config <yaml>` applied before them, and the reference's
 spellings (`--opt__*` aliases, runtime flags dropped with a warning).
-The keys of tasks and modules not ported yet (C_BOX, the other encoders,
-heads and CAM methods, the throughput knobs) are absent: a flag or a yaml
-key naming one is refused.  `stage1_cam_recipe` gives the stage-1
-classifier of config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the
+The keys of tasks and modules not ported yet (C_BOX, the throughput
+knobs) are absent: a flag or a yaml key naming one is refused.
+`stage1_cam_recipe` gives the stage-1 classifier of
+config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the
 stage-2 step flags of the end-to-end script, `stage2_tcam_production`
 those of the production stage-2 script (landmark CRF).
 """
@@ -33,6 +33,9 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 H2D_TRANSFERS = ("float32", "uint8")
 # the tasks of the JAX package that are ported (C_BOX is not)
 PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM)
+# the encoders that JAX's models/factory.get_encoder builds
+ENCODER_NAMES = (constants.RESNET50, "resnet101", constants.VGG16,
+                 constants.INCEPTIONV3)
 
 
 def get_root_datasets_dir() -> str:
@@ -89,6 +92,16 @@ class TCAMConfig:
     method: str = constants.METHOD_CAM
     encoder_name: str = constants.RESNET50
     spatial_pooling: str = constants.WGAP
+    # pooling-head hyperparameters: the LSE head's r; WildCat's modalities
+    # per class, kmax and kmin (an int counts maps, a float in (0, 1) is a
+    # share of them and a float 1.0 all of them), alpha and the dropout on
+    # its sorted activations
+    lse_r: float = 10.0
+    wc_modalities: int = 5
+    wc_kmax: float = 0.5
+    wc_kmin: Optional[float] = None
+    wc_alpha: float = 0.6
+    wc_dropout: float = 0.0
     freeze_cl: bool = False
     # the classifier's CAM of class label + 1 (a background class at 0)
     support_background: bool = False
@@ -228,6 +241,12 @@ class TCAMConfig:
 
     def replace(self, **kw) -> "TCAMConfig":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def std_cl_method_requires_grad(self) -> bool:
+        """Whether the CAM method differentiates the head at eval time
+        (JAX's hparams.finalize sets the same key)."""
+        return constants.METHOD_REQU_GRAD[self.method]
 
 
 def stage1_cam_recipe(**overrides) -> TCAMConfig:
@@ -397,6 +416,12 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
         raise ValueError(f"dataset {args.dataset!r} is not ported")
     if args.spatial_pooling not in constants.SPATIAL_POOLINGS:
         raise ValueError(f"spatial_pooling {args.spatial_pooling!r}")
+    if args.encoder_name not in ENCODER_NAMES:
+        raise ValueError(f"encoder_name must be one of {ENCODER_NAMES}, "
+                         f"got {args.encoder_name!r}")
+    if args.method not in constants.CAM_METHODS:
+        raise ValueError(f"method must be one of {constants.CAM_METHODS}, "
+                         f"got {args.method!r}")
     for key in ("compute_dtype", "eval_compute_dtype"):
         if getattr(args, key) not in COMPUTE_DTYPES:
             raise ValueError(f"{key} must be one of {COMPUTE_DTYPES}, got "
@@ -404,14 +429,11 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
     if args.task == constants.STD_CL:
         if args.arch != constants.STDCLASSIFIER:
             raise ValueError("STD_CL trains the STDClassifier arch")
-        # the method fixes the pooling head (METHOD_2_POOLINGHEAD); only
-        # the CAM method and its WGAP head are ported
-        if args.method != constants.METHOD_CAM:
-            raise NotImplementedError(f"CAM method {args.method} is not "
-                                      "ported")
-        if args.spatial_pooling != constants.WGAP:
-            raise NotImplementedError(f"pooling head {args.spatial_pooling}"
-                                      " is not ported")
+        # the method fixes the pooling head
+        want = constants.METHOD_2_POOLINGHEAD[args.method]
+        if args.spatial_pooling != want:
+            raise ValueError(f"method {args.method} requires pooling {want}"
+                             f", got {args.spatial_pooling}")
     if args.task == constants.TCAM:
         if args.arch != constants.UNETTCAM:
             raise ValueError("TCAM trains the UnetTCAM arch")

@@ -11,11 +11,7 @@ STDCLASSIFIER = "STDClassifier"
 UNETTCAM = "UnetTCAM"
 UNETFCAM = "UnetFCAM"
 
-# CAM method of the stage-1 classifier (part of the experiment tag); the
-# only method ported
-METHOD_CAM = "CAM"
-
-# pooling heads (WGAP, the CAM method's, is the only one built)
+# pooling heads
 GAP = "GAP"
 WGAP = "WGAP"
 MAX_POOL = "MaxPool"
@@ -23,8 +19,67 @@ LSE_POOL = "LogSumExpPool"
 WILDCAT = "WildCatCLHead"
 SPATIAL_POOLINGS = (GAP, WGAP, MAX_POOL, LSE_POOL, WILDCAT)
 
-# encoders
+# CAM methods of the stage-1 classifier (part of the experiment tag)
+METHOD_CAM = "CAM"
+METHOD_SCORECAM = "ScoreCAM"
+METHOD_SSCAM = "SSCAM"
+METHOD_ISCAM = "ISCAM"
+METHOD_GRADCAM = "GradCam"
+METHOD_GRADCAMPP = "GradCAMpp"
+METHOD_SMOOTHGRADCAMPP = "SmoothGradCAMpp"
+METHOD_XGRADCAM = "XGradCAM"
+METHOD_LAYERCAM = "LayerCAM"
+METHOD_MAXPOOL = "MaxPool"
+METHOD_LSE = "LogSumExpPool"
+METHOD_WILDCAT = "WildCat"
+METHOD_GAP = "GAP"
+
+CAM_METHODS = (
+    METHOD_CAM, METHOD_SCORECAM, METHOD_SSCAM, METHOD_ISCAM, METHOD_GRADCAM,
+    METHOD_GRADCAMPP, METHOD_SMOOTHGRADCAMPP, METHOD_XGRADCAM,
+    METHOD_LAYERCAM, METHOD_MAXPOOL, METHOD_LSE, METHOD_WILDCAT, METHOD_GAP,
+)
+
+# method -> the pooling head it requires
+METHOD_2_POOLINGHEAD = {
+    METHOD_CAM: WGAP,
+    METHOD_SCORECAM: WGAP,
+    METHOD_SSCAM: WGAP,
+    METHOD_ISCAM: WGAP,
+    METHOD_GRADCAM: WGAP,
+    METHOD_GRADCAMPP: WGAP,
+    METHOD_SMOOTHGRADCAMPP: WGAP,
+    METHOD_XGRADCAM: WGAP,
+    METHOD_LAYERCAM: WGAP,
+    METHOD_MAXPOOL: MAX_POOL,
+    METHOD_LSE: LSE_POOL,
+    METHOD_WILDCAT: WILDCAT,
+    METHOD_GAP: GAP,
+}
+
+# methods that differentiate the head at eval time
+METHOD_REQU_GRAD = {
+    METHOD_CAM: False,
+    METHOD_SCORECAM: False,
+    METHOD_SSCAM: False,
+    METHOD_ISCAM: False,
+    METHOD_GRADCAM: True,
+    METHOD_GRADCAMPP: True,
+    METHOD_SMOOTHGRADCAMPP: True,
+    METHOD_XGRADCAM: True,
+    METHOD_LAYERCAM: True,
+    METHOD_MAXPOOL: False,
+    METHOD_LSE: False,
+    METHOD_WILDCAT: False,
+    METHOD_GAP: False,
+}
+
+# encoders (JAX's models/factory.get_encoder also builds "resnet101",
+# which ENCODERS does not list)
 RESNET50 = "resnet50"
+VGG16 = "vgg16"
+INCEPTIONV3 = "inceptionv3"
+ENCODERS = (RESNET50, VGG16, INCEPTIONV3)
 
 # datasets
 YTOV1 = "YouTube-Objects-v1.0"

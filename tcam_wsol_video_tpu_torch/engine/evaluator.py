@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,8 +32,12 @@ def cam_threshold_list(interval: float) -> np.ndarray:
 
 class CamEvaluator:
     def __init__(self, model, args, dataset, pipeline, split: str,
-                 fast: bool = False, max_gt_boxes: int = 8):
+                 fast: bool = False, max_gt_boxes: int = 8,
+                 generator: Optional[torch.Generator] = None):
+        """generator: the noise of the CAM methods that draw it
+        (SmoothGradCAM++, SSCAM), on the pipeline's device."""
         self.model = model
+        self.generator = generator
         self.args = args
         self.ds = dataset
         self.pipe = pipeline
@@ -82,7 +86,8 @@ class CamEvaluator:
             cams, logits = self.eval_step(
                 batch.get("raw_u8", batch.get("image")),
                 batch["raw_img"] if use_raw and "raw_img" in batch
-                else None, targets=batch["label"])
+                else None, targets=batch["label"],
+                generator=self.generator)
             cams_np = cams.float().cpu().numpy()
             logits_np = logits.float().cpu().numpy()
             forward_ms.append((time.perf_counter() - t0) * 1e3)

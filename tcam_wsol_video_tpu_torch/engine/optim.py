@@ -19,14 +19,18 @@ from torch import nn
 
 def param_group_labels(model: nn.Module, encoder_name: str
                        ) -> Dict[str, str]:
-    """'head' for classifier-rate parameters (classification_head, and
-    encoder.layer4* on ResNet), 'base' otherwise."""
+    """'head' for classifier-rate parameters (classification_head,
+    encoder.layer4* on ResNet and encoder.SPG_* on InceptionV3), 'base'
+    otherwise."""
     labels = {}
     for name, _ in model.named_parameters():
         keys = name.split(".")
+        enc = len(keys) >= 2 and keys[0] == "encoder"
         head = keys[0] == "classification_head" or (
-            encoder_name.startswith("resnet") and len(keys) >= 2
-            and keys[0] == "encoder" and keys[1].startswith("layer4"))
+            enc and encoder_name.startswith("resnet")
+            and keys[1].startswith("layer4")) or (
+            enc and encoder_name == "inceptionv3"
+            and keys[1].startswith("SPG_"))
         labels[name] = "head" if head else "base"
     return labels
 

@@ -95,12 +95,16 @@ def make_train_step(master_loss: MasterLoss, args,
                     seeder_cfg: Optional[TCAMSeederCfg] = None,
                     classifier_model=None):
     """Returns train_step(state, batch, switches, seed_weighted,
-    generator=None, gumbel=None, student=None) -> metrics dict; state is
-    updated in place (model parameters, BN statistics, optimizer, step).
+    generator=None, gumbel=None, student=None, dropout_generator=None) ->
+    metrics dict; state is updated in place (model parameters, BN
+    statistics, optimizer, step).
 
     gumbel (B, 2, H*W) injects the seeder's fg/bg Gumbel noise; otherwise
-    it is drawn from `generator`.  STD_CL takes the CE of the logits and
-    draws no seeds (seed_weighted, generator and gumbel are unused).
+    it is drawn from `generator`.  dropout_generator draws the masks of
+    the model's dropout in training (InceptionV3's SPG blocks, WildCat's
+    sorted activations); a model with live dropout raises without it.
+    STD_CL takes the CE of the logits and draws no seeds (seed_weighted,
+    generator and gumbel are unused).
     classifier_model, the frozen stage-1 classifier of a TCAM run without
     a CAM store: each step first recomputes batch["std_cam"] from its CAMs
     of the labels (recompute_seed_cams).  `student`, the best student's
@@ -123,7 +127,9 @@ def make_train_step(master_loss: MasterLoss, args,
                    seed_weighted: bool,
                    generator: Optional[torch.Generator] = None,
                    gumbel: Optional[torch.Tensor] = None,
-                   student=None) -> dict:
+                   student=None,
+                   dropout_generator: Optional[torch.Generator] = None
+                   ) -> dict:
         model, opt = state.model, state.optimizer
         batch = expand_compact_batch(batch)
         if student is not None:
@@ -145,7 +151,7 @@ def make_train_step(master_loss: MasterLoss, args,
                                 gumbel=gumbel)
 
         model.train()
-        out = model(batch["image"], dtype)
+        out = model(batch["image"], dtype, dropout_generator)
         logits = out["cl_logits"]
         if std_cl:
             inputs = LossInputs(epoch=state.epoch, cl_logits=logits,
@@ -181,24 +187,66 @@ def make_train_step(master_loss: MasterLoss, args,
     return train_step
 
 
-def _classifier_cam(out: dict, model, targets: torch.Tensor,
-                    args) -> torch.Tensor:
-    """The CAM method's map of class `targets` from a STDClassifier's
-    forward output: the fc-weight CAM on the last feature (B, h, w)."""
-    if args.method != constants.METHOD_CAM:
-        raise NotImplementedError(f"CAM method {args.method} is not ported")
-    return ex.cam_fc_weights(out["features"][-1],
-                             model.classification_head.fc.weight, targets,
-                             args.support_background)
+def _classifier_cam(out: dict, model, images: torch.Tensor,
+                    targets: torch.Tensor, args, dtype: torch.dtype,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CAM method's map of class `targets` (B, h, w) from a
+    STDClassifier's forward output `out` on `images` at `dtype` (JAX
+    steps._std_cam).  The gradient methods differentiate the head alone;
+    SmoothGradCAM++ and the ScoreCAM family run further forwards of the
+    model at `dtype`; the family scores 32 channels a forward.  Sample
+    counts: args.sgcampp_num_samples / sscam_num_samples /
+    iscam_num_samples, 4 / 35 / 10 when absent.  SmoothGradCAM++ and SSCAM
+    draw their noise from `generator` unless `noise` is given."""
+    method = args.method
+    feats = out["features"][-1]
+    bg = args.support_background
+
+    def head_fn(f):
+        return model.head_from_features(f)[0]
+
+    def feats_fn(x):
+        return model(x, dtype)["features"][-1]
+
+    def logits_fn(x):
+        return model(x, dtype)["cl_logits"]
+
+    if method == constants.METHOD_CAM:
+        return ex.cam_fc_weights(feats, model.classification_head.fc.weight,
+                                 targets, bg)
+    if method in ex.BUILTIN_CAM_METHODS:
+        return ex.builtin_cam(out["cams_head"], targets, bg)
+    if method in (constants.METHOD_GRADCAM, constants.METHOD_GRADCAMPP,
+                  constants.METHOD_XGRADCAM, constants.METHOD_LAYERCAM):
+        return ex.build_std_extractor(method)(head_fn, feats, targets)
+    if method == constants.METHOD_SMOOTHGRADCAMPP:
+        return ex.smooth_grad_cam_pp(
+            feats_fn, head_fn, images, targets, generator,
+            num_samples=int(getattr(args, "sgcampp_num_samples", 4)),
+            noise=noise)
+    if method == constants.METHOD_SCORECAM:
+        return ex.score_cam(logits_fn, images, feats, targets)
+    if method == constants.METHOD_SSCAM:
+        return ex.sscam(logits_fn, images, feats, targets, generator,
+                        num_samples=int(getattr(args, "sscam_num_samples",
+                                                35)), noise=noise)
+    if method == constants.METHOD_ISCAM:
+        return ex.iscam(logits_fn, images, feats, targets,
+                        num_samples=int(getattr(args, "iscam_num_samples",
+                                                10)))
+    raise ValueError(f"unknown CAM method {method!r}")
 
 
 def make_cam_eval_step(model, args):
-    """Returns eval_step(images, raw_images=None, targets=None) ->
-    (cams (B, crop, crop) in [0, 1], cl_logits).  uint8 images
-    (h2d_transfer=uint8) are normalized as expand_compact_batch does, and
-    serve as raw_images when those are not given.  F_CL and TCAM: the
-    softmax foreground of the decoder output; STD_CL: the CAM method's map of
-    class `targets` (the labels).  Then nan-guarded, resized to the crop
+    """Returns eval_step(images, raw_images=None, targets=None,
+    generator=None, noise=None) -> (cams (B, crop, crop) in [0, 1],
+    cl_logits).  uint8 images (h2d_transfer=uint8) are normalized as
+    expand_compact_batch does, and serve as raw_images when those are not
+    given.  F_CL and TCAM: the softmax foreground of the decoder output;
+    STD_CL: the CAM method's map of class `targets` (the labels,
+    _classifier_cam; `generator` or `noise` for the methods that draw
+    noise).  Then nan-guarded, resized to the crop
     (align_corners=False) and clipped.  With args.crf_post_process and
     raw_images (B, crop, crop, 3) in [0, 255], the CAM is then refined by
     crf_pp_iters mean-field iterations."""
@@ -213,7 +261,9 @@ def make_cam_eval_step(model, args):
     @torch.no_grad()
     def eval_step(images: torch.Tensor,
                   raw_images: Optional[torch.Tensor] = None,
-                  targets: Optional[torch.Tensor] = None):
+                  targets: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None):
         model.eval()
         if images.dtype == torch.uint8:
             raw = images.to(torch.float32)
@@ -222,7 +272,8 @@ def make_cam_eval_step(model, args):
                 raw_images = raw
         out = model(images, dtype)
         if std_cl:
-            cam = _classifier_cam(out, model, targets, args)
+            cam = _classifier_cam(out, model, images, targets, args, dtype,
+                                  generator, noise)
         else:
             cam = ex.seg_cam(out["fcams"])
         cam = torch.nan_to_num(cam.float(), nan=0.0, posinf=1.0, neginf=0.0)
@@ -243,17 +294,30 @@ def make_cam_eval_step(model, args):
 def make_classifier_cam_fn(classifier_model, args):
     """Returns cam_fn(images, targets) -> (B, h, w) CAMs of the frozen
     stage-1 classifier at its last feature's resolution, nan-guarded (the
-    CAM store's dump, and seeds recomputed without a store).  The
-    classifier runs at args.compute_dtype; its features times the fp32 fc
-    weights give fp32 CAMs."""
+    CAM store's dump, and seeds recomputed without a store).  A head that
+    builds maps (GAP, MaxPool, LSE, WildCat) gives its map of the target
+    class (JAX's built-in route); WGAP the fc-weight CAM, which the JAX
+    step recomputes its seeds with whatever the method.  The classifier
+    runs at args.compute_dtype; its features times the fp32 fc weights
+    give fp32 CAMs, and a head's maps are normalized in their own dtype
+    and returned as fp32."""
     dtype = DTYPES[args.compute_dtype]
+    builtin = classifier_model.classification_head.builtin_cam
 
     @torch.no_grad()
     def cam_fn(images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         classifier_model.eval()
         out = classifier_model(images, dtype)
-        cam = _classifier_cam(out, classifier_model, targets, args)
-        return torch.nan_to_num(cam, nan=0.0, posinf=1.0, neginf=0.0)
+        if builtin:
+            cam = ex.builtin_cam(out["cams_head"], targets,
+                                 args.support_background)
+        else:
+            cam = ex.cam_fc_weights(
+                out["features"][-1],
+                classifier_model.classification_head.fc.weight, targets,
+                args.support_background)
+        return torch.nan_to_num(cam, nan=0.0, posinf=1.0,
+                                neginf=0.0).float()
 
     return cam_fn
 

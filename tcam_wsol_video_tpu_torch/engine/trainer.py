@@ -193,10 +193,12 @@ class Trainer:
                 break
             dev_batch = {k: v for k, v in batch.items() if k != "image_id"}
             gen = self.kc.key("train", epoch, i, device=self.device)
+            drop_gen = self.kc.key("dropout", epoch, i, device=self.device)
             begin = clock.start()
             metrics = self.train_step(self.state, dev_batch, switches,
                                       seed_weighted=seed_weighted,
-                                      generator=gen, student=student)
+                                      generator=gen, student=student,
+                                      dropout_generator=drop_gen)
             clock.stop(begin)
             tot_loss += metrics["loss"]
             n_corr += metrics["n_correct"]
@@ -259,8 +261,11 @@ class Trainer:
         """One pass over `split`; `snapshot` names the weights in the
         record (the test passes at the best snapshots)."""
         ds, pipe = self.eval_pipes[split]
-        res = CamEvaluator(self.model, self.args, ds, pipe, split,
-                           fast=self.args.fast_eval).run()
+        res = CamEvaluator(
+            self.model, self.args, ds, pipe, split,
+            fast=self.args.fast_eval,
+            generator=self.kc.key("eval", split, epoch,
+                                  device=self.device)).run()
         rec = {"split": split, "epoch": epoch, "snapshot": snapshot,
                **{k: v for k, v in res.items()
                   if isinstance(v, (int, float))}, **res["timing"]}

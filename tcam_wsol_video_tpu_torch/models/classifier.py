@@ -1,13 +1,16 @@
 """STDClassifier, the stage-1 model of task STD_CL (port of
 models/classifier.py), NCHW inside.
 
-Encoder + pooling head on the last feature.  forward takes NHWC images
-and the compute dtype (models/resnet.py) and returns cl_logits (B, K),
-cams_head (None for WGAP, which builds no maps) and the encoder features
-(NCHW), all in that dtype.  The submodules are named
-`encoder` and `classification_head` as in UnetTCAM, so stage 2 loads
-them from a stage-1 snapshot, and models/transplant.py maps the flax tree
-onto them by name.
+Encoder + pooling head on the last feature.  forward takes NHWC images,
+the compute dtype (models/resnet.py) and a generator for the dropout of
+InceptionV3's SPG blocks and of WildCat in training, and returns
+cl_logits (B, K), cams_head (the head's maps (B, K', h, w), detached;
+None for WGAP, which builds none) and the encoder features (NCHW), all
+in that dtype.  The submodules are named `encoder` and
+`classification_head` as in UnetTCAM, so stage 2 loads them from a
+stage-1 snapshot, and models/transplant.py maps the flax tree onto them
+by name.  `head_from_features` runs the head alone: the gradient CAM
+methods differentiate it with respect to the last feature.
 """
 from __future__ import annotations
 
@@ -20,21 +23,26 @@ from tcam_wsol_video_tpu_torch.models.poolings import build_pooling_head
 
 
 class STDClassifier(nn.Module):
-    def __init__(self, encoder: nn.Module, pooling: str, classes: int):
+    def __init__(self, encoder: nn.Module, pooling: str, classes: int,
+                 support_background: bool = False, **head_kw):
+        """head_kw: build_pooling_head's hyperparameters (r, modalities,
+        kmax, kmin, alpha, dropout)."""
         super().__init__()
         self.encoder = encoder
         self.classification_head = build_pooling_head(
-            pooling, encoder.out_channels[-1], classes)
+            pooling, encoder.out_channels[-1], classes,
+            support_background=support_background, **head_kw)
 
-    def forward(self, x: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> dict:
-        features = self.encoder(x.permute(0, 3, 1, 2), dtype)
-        cl_logits, cams_head = self.classification_head(features[-1])
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None) -> dict:
+        features = self.encoder(x.permute(0, 3, 1, 2), dtype, generator)
+        cl_logits, cams_head = self.classification_head(features[-1],
+                                                        generator)
         return {"cl_logits": cl_logits, "cams_head": cams_head,
                 "features": features}
 
-    def head_from_features(self, feat: torch.Tensor
+    def head_from_features(self, feat: torch.Tensor,
+                           generator: Optional[torch.Generator] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The pooling head alone on a (B, C, h, w) feature map (where the
-        gradient CAM methods differentiate)."""
-        return self.classification_head(feat)
+        """The pooling head alone on a (B, C, h, w) feature map."""
+        return self.classification_head(feat, generator)

@@ -17,7 +17,7 @@ lecun_normal, biases zero, BatchNorm scale 1 and bias 0.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -72,7 +72,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     force_float32_reductions); the output is rounded once to the input's
     dtype.
 
-    flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) folds the *biased*
+    flax.linen.BatchNorm(momentum=0.9, epsilon=eps) folds the *biased*
     batch variance into `var`; torch's BatchNorm2d folds the unbiased one
     (n / (n - 1) larger, visible at small batches).  Normalization is the
     same; only the running-variance update differs.  Training mode lets
@@ -82,8 +82,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         flax:  r = (1 - m) r0 + m v  =  torch's r (1 - 1/n) + (1 - m) r0 / n
     """
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -138,7 +138,8 @@ class ResNetWSOL(nn.Module):
     """ResNet-50/101/152 with the WSOL stride pattern.
 
     forward(x NCHW, dtype) returns [x, stem, layer1, layer2, layer3,
-    layer4]: x as given, the stages computed in `dtype`.
+    layer4]: x as given, the stages computed in `dtype`.  `generator` is
+    taken for the encoders' common signature (this one draws nothing).
     """
     out_channels = (3, 64, 256, 512, 1024, 2048)
 
@@ -162,7 +163,9 @@ class ResNetWSOL(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+                dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         feats = [x]
         y = F.relu(self.bn1(self.conv1(x.to(dtype))))
         feats.append(y)
@@ -176,3 +179,23 @@ class ResNetWSOL(nn.Module):
 
 def resnet50_wsol() -> ResNetWSOL:
     return ResNetWSOL(layers=(3, 4, 6, 3))
+
+
+def resnet101_wsol() -> ResNetWSOL:
+    return ResNetWSOL(layers=(3, 4, 23, 3))
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout in training: each entry kept with probability 1 - p
+    and scaled by 1 / (1 - p), in x's dtype.  The mask is drawn from
+    `generator` (on x's device), never from the global stream; a missing
+    generator raises."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))

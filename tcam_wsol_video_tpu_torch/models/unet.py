@@ -1,15 +1,19 @@
 """UnetFCAM and its alias UnetTCAM (port of models/unet.py), NCHW inside.
 
-Encoder + classification head on the last feature + U-Net decoder
-(nearest x2 upsample, align_corners bilinear snap to the skip resolution
-on mismatch, concat, two Conv3x3+BN+ReLU) + 2-channel segmentation head
-upsampled to the input size; with im_rec, a reconstruction head on the
-decoder's output (3x3 conv, then (tanh + 1) / 2 img_range).  forward
-takes NHWC images and the compute dtype (models/resnet.py) and returns
+Encoder + classification head (any pooling head, with or without the
+background class) on the last feature + U-Net decoder (on VGG a center
+block of two Conv3x3+BN+ReLU first; then nearest x2 upsample,
+align_corners bilinear snap to the skip resolution on mismatch, concat,
+two Conv3x3+BN+ReLU) + 2-channel segmentation head upsampled to the
+input size; with im_rec, a reconstruction head on the decoder's output
+(3x3 conv, then (tanh + 1) / 2 img_range).  forward takes NHWC images,
+the compute dtype (models/resnet.py) and the generator of the encoder's
+and head's dropout (InceptionV3, WildCat) in training, and returns
 cl_logits (B, K), fcams (B, H, W, 2), im_recon (B, h, w, 3) at the
-decoder's resolution (None without im_rec) and the encoder features
-(NCHW), all in that dtype: the decoder, the heads and the final upsample
-follow their inputs' dtype.  F_CL and TCAM share the model, as in JAX.
+decoder's resolution (None without im_rec), the head's maps cams_head
+and the encoder features (NCHW), all in that dtype: the decoder, the
+heads and the final upsample follow their inputs' dtype.  F_CL and TCAM
+share the model, as in JAX.
 
 freeze_cl: the encoder and head run without autograd and keep their BN
 in inference mode (the JAX model's stop_gradient + enc_train=False); the
@@ -61,15 +65,29 @@ class DecoderBlock(nn.Module):
         return self.conv2(self.conv1(x))
 
 
+class CenterBlock(nn.Module):
+    """Two Conv3x3+BN+ReLU at the head's width (the VGG decoder's)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = Conv2dReLU(channels, channels)
+        self.conv2 = Conv2dReLU(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
 class UnetDecoder(nn.Module):
     """Classic U-Net decoder over the staged encoder features."""
 
     def __init__(self, encoder_channels: Sequence[int],
-                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 center: bool = False):
         super().__init__()
         # drop the input-resolution feature, reverse to start at the head
         enc = list(encoder_channels[1:])[::-1]
         head, skips = enc[0], enc[1:]
+        self.center = CenterBlock(head) if center else None
         cin = head
         self.blocks = len(decoder_channels)
         for i, ch in enumerate(decoder_channels):
@@ -80,6 +98,8 @@ class UnetDecoder(nn.Module):
     def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
         feats = list(features[1:])[::-1]
         x, skips = feats[0], feats[1:]
+        if self.center is not None:
+            x = self.center(x)
         for i in range(self.blocks):
             skip = skips[i] if i < len(skips) else None
             x = getattr(self, f"block_{i}")(x, skip)
@@ -112,13 +132,19 @@ class UnetFCAM(nn.Module):
     def __init__(self, encoder: nn.Module, pooling: str, classes: int,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  seg_h_out_channels: int = 2, freeze_cl: bool = False,
-                 im_rec: bool = False, img_range: float = 1.0):
+                 im_rec: bool = False, img_range: float = 1.0,
+                 center: bool = False, support_background: bool = False,
+                 **head_kw):
+        """head_kw: build_pooling_head's hyperparameters (r, modalities,
+        kmax, kmin, alpha, dropout)."""
         super().__init__()
         self.freeze_cl = freeze_cl
         self.encoder = encoder
         self.classification_head = build_pooling_head(
-            pooling, encoder.out_channels[-1], classes)
-        self.decoder = UnetDecoder(encoder.out_channels, decoder_channels)
+            pooling, encoder.out_channels[-1], classes,
+            support_background=support_background, **head_kw)
+        self.decoder = UnetDecoder(encoder.out_channels, decoder_channels,
+                                   center=center)
         self.segmentation_head = SegmentationHead(decoder_channels[-1],
                                                   seg_h_out_channels)
         self.reconstruction_head = (
@@ -133,13 +159,15 @@ class UnetFCAM(nn.Module):
             self.classification_head.eval()
         return self
 
-    def forward(self, x: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> dict:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None) -> dict:
         x_nchw = x.permute(0, 3, 1, 2)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_cl):
-            features: List[torch.Tensor] = self.encoder(x_nchw, dtype)
-            cl_logits, _ = self.classification_head(features[-1])
+            features: List[torch.Tensor] = self.encoder(x_nchw, dtype,
+                                                        generator)
+            cl_logits, cams_head = self.classification_head(features[-1],
+                                                            generator)
         dec = self.decoder(features)
         fcams = self.segmentation_head(dec)
         if tuple(fcams.shape[-2:]) != tuple(x.shape[1:3]):
@@ -149,7 +177,8 @@ class UnetFCAM(nn.Module):
         if self.reconstruction_head is not None:
             im_recon = self.reconstruction_head(dec).permute(0, 2, 3, 1)
         return {"cl_logits": cl_logits, "fcams": fcams.permute(0, 2, 3, 1),
-                "im_recon": im_recon, "features": features}
+                "im_recon": im_recon, "cams_head": cams_head,
+                "features": features}
 
 
 # TCAM's model is F-CAM's (the JAX package keeps the same alias)

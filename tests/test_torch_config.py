@@ -193,4 +193,4 @@ def test_the_ported_keys():
               "im_rec_elb", "img_range", "sl_fc", "sl_block", "sl_tc_block",
               "crf_fc", "crf_lambda", "entropy_fc", "max_sizepos_fc_end_ep"):
         assert _same(getattr(TCAMConfig(), k), ref[k]), k
-    assert len(KEYS) == 147 and set(KEYS) <= set(ref)
+    assert len(KEYS) == 153 and set(KEYS) <= set(ref)

@@ -165,7 +165,7 @@ def test_cam_evaluator_exact_on_injected_cams(val_split):
     ev, jev = _evaluators(val_split, torch.nn.Identity(),
                           jax_model(), targs, jargs)
 
-    def fake(images, raw=None, targets=None):
+    def fake(images, raw=None, targets=None, generator=None):
         cam = (images[..., 0] * 0.125 + 0.5).clamp(0.0, 1.0)
         return cam, images[:, 0, :10, 0]
 
