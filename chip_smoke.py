@@ -19,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      compute_dtype float32 (TF32 cuDNN convolutions);
   4. the same first step with every convolution in full fp32: its loss
      terms against the TF32 step's (the TF32 gap) and against the bf16
-     step's (the bf16 gap);
+     step's (the bf16 gap); then path A's bf16 step from the same state
+     with loss_chunk 8 and with remat against the plain step (losses,
+     remat's parameter update and BN statistics), each one's peak memory
+     and kernel 1's launches;
   5. at batch 2, the exact CRF loss value and gradient through the kernel
      against the same quantities from the plain version;
   6. path B, the production stage-2 recipe (landmark CRF, M = 1024, the
@@ -67,11 +70,21 @@ Phases (any failure raises and the script exits non-zero):
  12. path G (run right after path D, on its set and store), the train
      data plane: cli/train.main with path D's flags plus --h2d_transfer
      uint8 --decode_cache_mb 256 --train_device_cache_mb 256 for 4
-     epochs, launch counts reset just before: every epoch from the
-     card-resident feed, each sampled frame decoded once, the exact CRF
-     kernel once per step, libjpeg never loaded; then the feed's first
-     epoch-1 batch against the streamed route (ids and uint8 pixels
-     equal, the CAM side within JAX's tolerances);
+     epochs at --train_dispatch_chunk 0, launch counts reset just
+     before: every epoch from the card-resident feed, each sampled frame
+     decoded once, the exact CRF kernel once per step, libjpeg never
+     loaded; then the feed's first epoch-1 batch against the streamed
+     route (ids and uint8 pixels equal, the CAM side within JAX's
+     tolerances); then path L: path G's data flags at JAX's default
+     train_dispatch_chunk 8 for 2 epochs (each epoch's 5 steps one CUDA
+     graph replay), then the same epochs from the same weights at 0:
+     plans equal, the first step's and the epochs' losses within JAX's
+     tolerances, kernel 1 once a step through the replays, each route's
+     step, host enqueue, data wait and epoch wall; and the eval knobs on
+     path L's snapshot (path D's test split decoded once and replayed:
+     the counters bit-equal across eval_transfer, eval_sweep, pipeline
+     depth and the device cache's two passes; images/s of each,
+     on_device_eval's approximate MaxBoxAcc);
  13. roi_batch (ROI_LARGEST, ROI_H_DENSITY) at batch 32 / 224 px on the
      card against the host route roi_one_cam_np, timed;
  14. path H (on path D's set and store): cli/train.main with --config
@@ -1109,9 +1122,12 @@ def phase_trainer(seed: int, data: dict) -> dict:
 # ------------------------------------------ path G: the train data plane
 # the JAX package's train data plane (cli/train.py flags): uint8 batches,
 # the decoded-frame cache and the card-resident train feed, whose frames
-# pool for path D's 640 frames at 256 px is 126 MB
-PATH_G_FLAGS = ["--h2d_transfer", "uint8", "--decode_cache_mb", "256",
+# pool for path D's 640 frames at 256 px is 126 MB; path G keeps one step
+# a dispatch (its history compares with earlier runs), path L takes JAX's
+# default of 8
+PATH_L_FLAGS = ["--h2d_transfer", "uint8", "--decode_cache_mb", "256",
                 "--train_device_cache_mb", "256"]
+PATH_G_FLAGS = PATH_L_FLAGS + ["--train_dispatch_chunk", "0"]
 PATH_G_EPOCHS = 4
 # one epoch-1 batch of the feed against the streamed route with the
 # decoded-frame cache (JAX tests/test_device_feed.py's tolerances): the
@@ -1246,6 +1262,357 @@ def phase_feed(seed: int, data: dict) -> dict:
             "train": train, "eval": out["records"]["eval"],
             "test_best_loc": rep["best"], "batch_check": batch_check,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ------------------------- path L: K steps a dispatch as CUDA graphs
+PATH_L_EPOCHS = 2
+# the chunked route against the per-step route from the same weights (JAX
+# tests/test_device_feed.py::test_chunked_dispatch_matches_per_step): the
+# first step's loss at bf16 (the same kernels on the same inputs, cuDNN
+# free to pick its algorithms in and out of a graph), epoch 0's loss
+# (rtol 1e-3) and epoch 1's (rtol 5e-2, training dynamics: the seeder's
+# discrete decisions flip on ~1e-7 differences)
+CHUNK_FIRST_RTOL = 1e-3
+CHUNK_EPOCH_RTOL = (1e-3, 5e-2)
+
+
+class PlanSpy:
+    """Records every epoch plan a card-resident feed draws: (epoch, frame
+    ids, plan arrays)."""
+
+    def __init__(self):
+        from tcam_wsol_video_tpu_torch.data.device_feed import \
+            DeviceTrainFeed
+        self.cls = DeviceTrainFeed
+        self.orig = DeviceTrainFeed._plan_epoch
+        self.plans = []
+
+    def __enter__(self):
+        spy = self
+
+        def plan_epoch(feed, epoch, subset=None):
+            out = spy.orig(feed, epoch, subset)
+            spy.plans.append((epoch, out[1], out[0]))
+            return out
+        self.cls._plan_epoch = plan_epoch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._plan_epoch = self.orig
+
+
+def _train_step_losses(outd: str) -> list:
+    with open(os.path.join(outd, "log.json")) as f:
+        return [json.loads(x)["loss"] for x in f
+                if '"it"' in x and '"split": "train"' in x]
+
+
+def phase_chunked(seed: int, data: dict) -> dict:
+    """Path L: cli/train.main with path G's data flags and JAX's default
+    train_dispatch_chunk 8 for PATH_L_EPOCHS epochs (each epoch's 5 steps
+    one CUDA graph replay), then the same epochs from the same weights at
+    --train_dispatch_chunk 0; counts reset just before each.  Per route:
+    the median step, the host's enqueue and the data wait a step, the
+    epoch wall time and kernel 1's launches (one a step, through the
+    replays); the routes' plans equal, the first step's loss and the epoch
+    losses within the tolerances above."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+
+    root = data["root"]
+    routes = {}
+    for name, extra in (("chunked", []),
+                        ("per_step", ["--train_dispatch_chunk", "0"])):
+        flags = path_d_flags(root, os.path.join(root, "cams"),
+                             os.path.join(root, "exps_l"),
+                             epochs=PATH_L_EPOCHS, exp_id=f"l_{name}")
+        flags[flags.index("--log_every") + 1] = "1"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with PlanSpy() as plans:
+            t0 = time.perf_counter()
+            out = cli_train.main(flags + PATH_L_FLAGS + extra)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = read_counts()
+        rep = report_trainer(f"path L {name}", out, PATH_L_EPOCHS)
+        train = out["records"]["train"]
+        k = launches["bilateral_exact"]["kernel"]
+        for r in train:
+            print(f"[path L {name} epoch {r['epoch']}] dispatch "
+                  f"{r['dispatch']} K={r['dispatch_chunk']}, median step "
+                  f"{r['median_step_ms']:.2f} ms, host enqueue "
+                  f"{r['host_enqueue_ms_per_step']:.2f} ms/step, data wait "
+                  f"{r['data_wait_ms_per_step']:.2f} ms/step (plan "
+                  f"{r['data_plan_ms']:.2f} ms, pool fill "
+                  f"{r['data_fill_ms']:.2f} ms, {r['pool_decodes']} decodes)"
+                  f", graph capture {r['capture_ms']:.1f} ms, epoch wall "
+                  f"{r['wall_ms']:.1f} ms, loss {r['loss']:.6g}",
+                  flush=True)
+            check(r["data_route"] == "device_feed" and r["dispatch"] == name,
+                  f"path L {name}: route {r['data_route']}/{r['dispatch']}")
+        print(f"[path L {name} launches] bilateral_exact {k} in "
+              f"{rep['steps']} steps; {launches}; cli/train.main "
+              f"{wall_s:.2f} s", flush=True)
+        check(k == rep["steps"], f"path L {name}: the exact CRF kernel "
+              f"launched {k} times in {rep['steps']} steps")
+        check(all(c["plain"] == 0 for c in launches.values()),
+              f"path L {name}: a plain version ran")
+        routes[name] = {
+            "wall_s": wall_s, "launches": launches, "steps": rep["steps"],
+            "train": train, "eval": out["records"]["eval"],
+            "test_best_loc": rep["best"], "plans": plans.plans,
+            "step_losses": _train_step_losses(out["outd"]),
+            "outd": out["outd"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    ch, ps = routes["chunked"], routes["per_step"]
+    check(len(ch["plans"]) == len(ps["plans"]) == PATH_L_EPOCHS,
+          "path L: plans drawn per route "
+          f"{len(ch['plans'])}/{len(ps['plans'])}")
+    for (ea, ia, pa), (eb, ib, pb) in zip(ch["plans"], ps["plans"]):
+        check(ea == eb and ia == ib and all(
+            np.array_equal(pa[k], pb[k]) for k in pa),
+            f"path L: epoch {ea}'s plan differs between the routes")
+    first = (ch["step_losses"][0], ps["step_losses"][0])
+    first_rel = abs(first[0] - first[1]) / abs(first[1])
+    epoch_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(ch["train"], ps["train"])]
+    print(f"[path L] plans equal in {PATH_L_EPOCHS} epochs; first step's "
+          f"loss {first[0]:.8g} chunked / {first[1]:.8g} per-step (rel "
+          f"{first_rel:.3e}, tol {CHUNK_FIRST_RTOL}); epoch losses rel "
+          + "/".join(f"{e:.3e}" for e in epoch_rel)
+          + f" (tol {'/'.join(str(t) for t in CHUNK_EPOCH_RTOL)})",
+          flush=True)
+    check(first_rel <= CHUNK_FIRST_RTOL, "path L: first step's loss")
+    for e, tol in zip(epoch_rel, CHUNK_EPOCH_RTOL):
+        check(e <= tol, f"path L: epoch loss rel {e:.3e} over {tol}")
+    for r in routes.values():
+        r.pop("plans")
+    return {"routes": routes, "first_step_rel": first_rel,
+            "epoch_loss_rel": epoch_rel,
+            "snapshot": os.path.join(ch["outd"], "best_localization")}
+
+
+# ------------------------------------------- the eval-knob phase (path L)
+def _counters_equal(a: dict, b: dict) -> bool:
+    keys = ("maxboxacc_30", "maxboxacc_50", "maxboxacc_70", "top1_loc_30",
+            "top1_loc_50", "top1_loc_70", "top5_loc_30", "top5_loc_50",
+            "top5_loc_70", "classification", "n_images")
+    return (all(a[k] == b[k] for k in keys) and a["best_tau"] == b["best_tau"]
+            and all(np.array_equal(a["curves"][s], b["curves"][s])
+                    and np.array_equal(a["curves"]["top1"][s],
+                                       b["curves"]["top1"][s])
+                    and np.array_equal(a["curves"]["top5"][s],
+                                       b["curves"]["top5"][s])
+                    for s in (30, 50, 70)))
+
+
+class ReplayPipe:
+    """An eval pipeline that replays batches made once, so that every eval
+    knob sees the same pixels."""
+
+    def __init__(self, batches: list, device):
+        self.batches = batches
+        self.device = torch.device(device)
+
+    def epoch(self, epoch: int):
+        yield from self.batches
+
+
+def phase_eval_knobs(seed: int, data: dict, snapshot: str) -> dict:
+    """The eval knobs on path D's test split (320 frames, uint8 batches of
+    32) at path L's best-localization snapshot, through CamEvaluator: the
+    exact counters bit-equal for eval_transfer float32/uint16/uint8,
+    eval_sweep host/device, eval_pipeline_depth 1/8 and the device cache's
+    second pass against its first; images/s of each, the device sweep's
+    host-swept fallbacks, and on_device_eval's approximate MaxBoxAcc
+    beside the exact one.  The knobs are held on one set of batches (the
+    split decoded once and replayed; a pass that decodes runs first, for
+    its images/s); the frames in which two decodes of the split differ
+    are counted and printed."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.core.config import parse_args
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.data.pipeline import DataPipeline
+    from tcam_wsol_video_tpu_torch.engine import evaluator
+    from tcam_wsol_video_tpu_torch.models.factory import \
+        create_model_from_args
+
+    root = data["root"]
+    extra = argparse.ArgumentParser(add_help=False)
+    extra.add_argument("--device")
+    args, _ = parse_args(path_d_flags(root, os.path.join(root, "cams"),
+                                      os.path.join(root, "exps_l"))
+                         + PATH_L_FLAGS, extra)
+    args = cli_train.resolve_metadata_root(args)
+    kc = KeyChain(seed)
+    ds = cli_train.eval_dataset(args, kc, constants.TESTSET)
+    step, payload = ckpt.load_best_model(snapshot)
+    check(payload is not None, f"eval knobs: no snapshot under {snapshot}")
+    model = create_model_from_args(args, device="cuda")
+    ckpt.load_components(model, payload["components"])
+
+    def pipe():
+        return DataPipeline(ds, args.eval_batch_size, kc, shuffle=False,
+                            compact=True, device="cuda")
+
+    def decoded():
+        out = list(pipe().epoch(0))
+        torch.cuda.synchronize()
+        return out
+
+    batches, again = decoded(), decoded()
+    differ = sum(int((a["raw_u8"] != b["raw_u8"]).flatten(1).any(1).sum())
+                 for a, b in zip(batches, again))
+    print(f"[eval knobs] the test split decoded twice: {differ} of "
+          f"{sum(len(b['image_id']) for b in batches)} frames differ",
+          flush=True)
+    del again
+    variants = [
+        ("decoding pass", {}),
+        ("host f32 depth 8", {}),
+        ("host f32 depth 1", {"eval_pipeline_depth": 1}),
+        ("host uint16", {"eval_transfer": "uint16"}),
+        ("host uint8", {"eval_transfer": "uint8"}),
+        ("device sweep", {"eval_sweep": "device"}),
+        ("device sweep uint8", {"eval_sweep": "device",
+                                "eval_transfer": "uint8"}),
+        ("cache pass 1", {"eval_device_cache": True}),
+        ("cache pass 2", {"eval_device_cache": True}),
+        ("on_device", {"on_device_eval": True})]
+    cache_pipe = ReplayPipe(batches, "cuda")
+    out = {}
+    for name, knobs in variants:
+        p = (pipe() if name == "decoding pass" else cache_pipe
+             if name.startswith("cache") else ReplayPipe(batches, "cuda"))
+        torch.cuda.synchronize()
+        res = evaluator.CamEvaluator(
+            model, args.replace(**knobs), ds, p, constants.TESTSET,
+            generator=kc.key("eval", "knobs", device="cuda")).run()
+        t = res["timing"]
+        out[name] = {k: v for k, v in res.items() if k != "curves"}
+        out[name]["curves"] = res["curves"]
+        print(f"[eval knobs] {name}: {res['n_images']} images, "
+              f"{t['images_per_s']:.1f} images/s (sweep {t['sweep']}, depth "
+              f"{t['pipeline_depth']}, cache {t['device_cache']}), eval "
+              f"step {t['forward_ms_per_batch']:.2f} ms/batch, MaxBoxAcc "
+              f"30/50/70 {res['maxboxacc_30']:.2f}/{res['maxboxacc_50']:.2f}"
+              f"/{res['maxboxacc_70']:.2f}"
+              + (f", device-sweep fallbacks {res['sweep_fallbacks']}"
+                 if "sweep_fallbacks" in res else ""), flush=True)
+        check(res["n_images"] == 320, f"eval knobs {name}: "
+              f"{res['n_images']} images")
+    base = out["host f32 depth 8"]
+    for name, _ in variants[2:-1]:
+        check(_counters_equal(out[name], base), f"eval knobs: {name}'s "
+              "counters differ from host f32 depth 8's")
+    check(out["cache pass 2"]["timing"]["device_cache"] == "replayed",
+          "eval knobs: the cache's second pass did not replay")
+    od = out["on_device"]
+    print("[eval knobs] counters bit-equal across every exact variant; "
+          "on_device_eval (approximate) MaxBoxAcc 30/50/70 "
+          + "/".join(f"{od[f'maxboxacc_{s}']:.2f}" for s in (30, 50, 70))
+          + " against the exact "
+          + "/".join(f"{base[f'maxboxacc_{s}']:.2f}" for s in (30, 50, 70)),
+          flush=True)
+    for r in out.values():
+        r.pop("curves", None)
+    del model, cache_pipe
+    torch.cuda.empty_cache()
+    return {"snapshot_step": step, "variants": out,
+            "frames_decoded_differently": differ}
+
+
+# --------------------------------------- loss_chunk and remat at path A
+# the chunked loss against the plain step's at bf16: the same terms summed
+# by groups of 8 frames (fp32 sums in another order; the CE's count)
+LOSS_CHUNK_RTOL = 1e-3
+
+
+def phase_loss_chunk_remat(seed: int) -> dict:
+    """Path A's step (bs 32, 224 px, bf16) from the same weights, batch and
+    seeder noise: plain, with loss_chunk 8 and with remat.  The losses
+    within LOSS_CHUNK_RTOL of the plain step's; remat's parameter update
+    and BN statistics within BF16_RTOL of the plain step's (relative to
+    their largest values); the peak memory of each, and kernel 1's
+    launches a step under chunking (one a group of frames, and one
+    more as the backward recomputes the group)."""
+    from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
+    from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
+    from tcam_wsol_video_tpu_torch.losses.build import get_loss_tcam
+
+    runs = {}
+    for name, knobs in (("plain", {}), ("loss_chunk 8", {"loss_chunk": 8}),
+                        ("remat", {"remat": True})):
+        (args, model, opt, state, _, _, batch, gen,
+         switches) = build_main_path(seed)
+        args = args.replace(**knobs)
+        step = make_train_step(get_loss_tcam(args), args,
+                               seeder_cfg_from_args(args))
+        before = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        met = step(state, batch, switches, seed_weighted=True, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        runs[name] = {
+            "metrics": {k: float(v) for k, v in met.items()},
+            "step_ms": ms, "peak_mem_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "kernel_launches": launches["bilateral_exact"]["kernel"],
+            "delta": {k: (v.detach().float() - before[k].float())
+                      for k, v in model.state_dict().items()}}
+        print(f"[loss_chunk/remat] {name}: loss "
+              f"{runs[name]['metrics']['loss']:.8g}, step {ms:.2f} ms "
+              f"(first call), peak {runs[name]['peak_mem_gib']:.2f} GiB, "
+              f"bilateral_exact {runs[name]['kernel_launches']} launches "
+              f"in the step", flush=True)
+        check(all(c["plain"] == 0 for c in launches.values()),
+              f"loss_chunk/remat {name}: a plain version ran")
+        del model, opt, state, batch
+        torch.cuda.empty_cache()
+    plain = runs["plain"]
+    for name in ("loss_chunk 8", "remat"):
+        r = runs[name]
+        rel = {k: abs(r["metrics"][k] - v) / max(abs(v), 1e-30)
+               for k, v in plain["metrics"].items()
+               if k not in ("n", "n_correct")}
+        print(f"[loss_chunk/remat] {name} against plain: rel " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items()), flush=True)
+        check(abs(r["metrics"]["loss"] - plain["metrics"]["loss"])
+              <= LOSS_CHUNK_RTOL * abs(plain["metrics"]["loss"]),
+              f"{name}: loss off the plain step's")
+    # each group's checkpointed body runs again in the backward
+    check(runs["loss_chunk 8"]["kernel_launches"] == 8,
+          "loss_chunk 8: kernel 1 launched "
+          f"{runs['loss_chunk 8']['kernel_launches']} times for 4 groups, "
+          "each recomputed once")
+    check(runs["plain"]["kernel_launches"] == runs["remat"][
+        "kernel_launches"] == 1, "plain/remat: kernel 1 once a step")
+    worst = {}
+    for kind, keys in (
+            ("params", [k for k in plain["delta"] if not k.endswith((
+                "running_mean", "running_var", "num_batches_tracked"))]),
+            ("bn_stats", [k for k in plain["delta"]
+                          if k.endswith(("running_mean", "running_var"))])):
+        scale = max(float(plain["delta"][k].abs().max()) for k in keys)
+        err = max(float((runs["remat"]["delta"][k]
+                         - plain["delta"][k]).abs().max()) for k in keys)
+        worst[kind] = err / scale
+        print(f"[loss_chunk/remat] remat {kind} update: max |diff| "
+              f"{err:.3e} against the plain update's largest {scale:.3e} "
+              f"(rel {err / scale:.3e}, tol {BF16_RTOL})", flush=True)
+        check(err <= BF16_RTOL * scale, f"remat: {kind} off the plain "
+              "step's")
+    for r in runs.values():
+        r.pop("delta")
+    return {"runs": runs, "remat_rel": worst}
 
 
 # ROI pixels of the card's roi_batch against the host route (scipy labels,
@@ -2554,11 +2921,15 @@ def main(argv=None) -> int:
     result["bf16_gap"] = phase_bf16_gap(result["main_path"]["steps"],
                                         result["tf32_gap"]["fp32_steps"])
     result["crf_parity"] = phase_crf_parity(SEED)
+    result["loss_chunk_remat"] = phase_loss_chunk_remat(SEED)
     result["production"] = phase_production(SEED, STEPS, a.profile)
     result["crf_landmark_parity"] = phase_landmark_parity(SEED)
     data = make_trainer_set(SEED)
     result["trainer"] = phase_trainer(SEED, data)
     result["feed"] = phase_feed(SEED, data)
+    result["chunked"] = phase_chunked(SEED, data)
+    result["eval_knobs"] = phase_eval_knobs(SEED, data,
+                                            result["chunked"]["snapshot"])
     result["chain"] = phase_chain(SEED, data)
     result["recompute"] = phase_recompute(SEED, data,
                                           result["chain"]["stage1_outd"])
@@ -2607,6 +2978,9 @@ def main(argv=None) -> int:
             "bilateral_exact"]["kernel"],
         "launches_path_g": result["feed"]["launches"]["bilateral_exact"][
             "kernel"],
+        # path L: CUDA graph replays times the launches of one capture
+        "launches_path_l": result["chunked"]["routes"]["chunked"][
+            "launches"]["bilateral_exact"]["kernel"],
         "launches_path_h": result["recipe_yaml"]["launches"][
             "bilateral_exact"]["kernel"],
         "launches_path_i": result["f_cl"]["launches"]["bilateral_exact"][
@@ -2697,6 +3071,25 @@ def main(argv=None) -> int:
           + f" ({pg['decodes']} for {pg['sampled_frames']} sampled frames),"
           f" test MaxBoxAcc@50 {pg['test_best_loc']['maxboxacc_50']:.2f}; "
           f"cli/train.main {pg['wall_s']:.1f} s", flush=True)
+    pl = result["chunked"]["routes"]
+    for name, r in pl.items():
+        print(f"[summary] path L {name} (K "
+              f"{r['train'][0]['dispatch_chunk']}): median step "
+              f"{per_epoch(r['train'], 'median_step_ms')} ms, host enqueue "
+              f"{per_epoch(r['train'], 'host_enqueue_ms_per_step')} ms/step,"
+              f" data wait {per_epoch(r['train'], 'data_wait_ms_per_step')}"
+              f" ms/step, epoch wall {per_epoch(r['train'], 'wall_ms')} ms, "
+              f"bilateral_exact {r['launches']['bilateral_exact']['kernel']}"
+              f" launches in {r['steps']} steps; cli/train.main "
+              f"{r['wall_s']:.1f} s", flush=True)
+    print("[summary] eval knobs (path D's test split, path L's snapshot): "
+          + ", ".join(f"{n} {v['timing']['images_per_s']:.1f} images/s"
+                      for n, v in result["eval_knobs"]["variants"].items()),
+          flush=True)
+    lr = result["loss_chunk_remat"]["runs"]
+    print("[summary] path A step bf16: " + ", ".join(
+        f"{n} peak {v['peak_mem_gib']:.2f} GiB, kernel 1 x"
+        f"{v['kernel_launches']}" for n, v in lr.items()), flush=True)
     print("[summary] roi_batch at B=32, 224x224: " + ", ".join(
         f"{m} {r['ms']:.3f} ms (host route {r['host_ms']:.1f} ms)"
         for m, r in result["roi"].items()), flush=True)

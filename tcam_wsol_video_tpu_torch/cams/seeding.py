@@ -72,12 +72,12 @@ def _gumbel_topk_argmax_rows(keys: torch.Tensor, k: int) -> torch.Tensor:
     -inf where ineligible.  Returns (R, P) int32 masks."""
     kc = keys.clone()
     mask = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
-    rows = torch.arange(keys.shape[0], device=keys.device)
     for _ in range(k):
-        i = kc.argmax(1)
-        hit = torch.isfinite(kc[rows, i])
-        mask[rows, i] = torch.where(hit, 1, mask[rows, i])
-        kc[rows, i] = float("-inf")
+        # gathers and scatters on the card, no host value (CUDA graphs)
+        i = kc.argmax(1, keepdim=True)
+        hit = torch.isfinite(kc.gather(1, i))
+        mask.scatter_(1, i, torch.where(hit, 1, mask.gather(1, i)))
+        kc.scatter_(1, i, float("-inf"))
     return mask
 
 
@@ -193,8 +193,10 @@ def tcam_seeder(cams: torch.Tensor, cfg: TCAMSeederCfg,
         torch.where(fg_elig, logw_fg + gumbel[:, 0], float("-inf")),
         torch.where(bg_elig, gumbel[:, 1], float("-inf"))], 1)  # (B, 2, P)
     if max(k_fg, k_bg) > _BISECT_TOPK_THRESHOLD:
-        k = torch.tensor([k_fg, k_bg], dtype=torch.int32,
-                         device=dev).repeat(b)
+        k = torch.stack([
+            torch.full((b,), k_fg, dtype=torch.int32, device=dev),
+            torch.full((b,), k_bg, dtype=torch.int32, device=dev)],
+            1).reshape(2 * b)
         sel = _gumbel_topk_bisect_rows(
             keys.reshape(2 * b, p),
             torch.stack([fg_elig, bg_elig], 1).reshape(2 * b, p), k)

@@ -12,7 +12,9 @@ It loads the eval_checkpoint_type snapshot of --exp_dir into the model of
 --task, runs the split through the evaluator (the CAM of each image, the
 host box sweep, MaxBoxAcc at each IoU threshold, top-1 classification)
 at --eval_compute_dtype (default float32) and prints the numeric results
-as one JSON object.  It runs on the card
+as one JSON object.  The eval knobs apply (--eval_sweep, --eval_transfer,
+--eval_pipeline_depth, --eval_device_cache); --on_device_eval true gives
+the approximate device counters instead, as JAX's CLI does.  It runs on the card
 unless --device cpu is given; without CUDA it raises.
 """
 from __future__ import annotations

@@ -6,8 +6,8 @@ package reads the same in the other, and `parse_args` takes the same
 command line: `--key value` flags (booleans as true/false, lists as
 [a, b]), `--config <yaml>` applied before them, and the reference's
 spellings (`--opt__*` aliases, runtime flags dropped with a warning).
-The keys of tasks and modules not ported yet (C_BOX, the throughput
-knobs) are absent: a flag or a yaml key naming one is refused.
+The keys of tasks and modules not ported yet (C_BOX, multi-GPU, the
+demo) are absent: a flag or a yaml key naming one is refused.
 `stage1_cam_recipe` gives the stage-1 classifier of
 config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the
 stage-2 step flags of the end-to-end script, `stage2_tcam_production`
@@ -31,6 +31,9 @@ from tcam_wsol_video_tpu_torch.data.folds import (parse_flat_mapping,
 # factory's table), and of h2d_transfer
 COMPUTE_DTYPES = ("float32", "bfloat16")
 H2D_TRANSFERS = ("float32", "uint8")
+# the choices of eval_transfer and eval_sweep (JAX hparams.finalize)
+EVAL_TRANSFERS = ("float32", "uint16", "uint8")
+EVAL_SWEEPS = ("auto", "device", "host")
 # the tasks of the JAX package that are ported (C_BOX is not)
 PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM)
 # the encoders that JAX's models/factory.get_encoder builds
@@ -72,6 +75,13 @@ class TCAMConfig:
     h2d_transfer: str = "float32"
     decode_cache_mb: int = 0
     train_device_cache_mb: int = 0
+    # the throughput layer: K train steps a dispatch over the card-resident
+    # feed (engine/scan_train.py; 0 = one step a dispatch), the loss side
+    # in groups of loss_chunk frames (0 = off) and the model forward
+    # recomputed in the backward (remat)
+    train_dispatch_chunk: int = 8
+    loss_chunk: int = 0
+    remat: bool = False
     # dtype policy: fp32 parameters; the train step, the dump and the
     # frozen seeder classifier compute in compute_dtype, evaluation in
     # eval_compute_dtype (models/factory.py DTYPES)
@@ -86,6 +96,16 @@ class TCAMConfig:
     box_v2_metric: bool = True
     eval_checkpoint_type: str = constants.BEST_LOC
     fast_eval: bool = True
+    # the eval knobs (engine/evaluator.py): the approximate covering-box
+    # counters on the device (model selection only), the CAMs' readback
+    # dtype, where the exact sweep runs, batches in flight, and the
+    # card-resident cache of prepared eval batches with its budget (MiB)
+    on_device_eval: bool = False
+    eval_transfer: str = "float32"
+    eval_sweep: str = "auto"
+    eval_pipeline_depth: int = 8
+    eval_device_cache: bool = False
+    eval_device_cache_mb: int = 1024
     # model
     task: str = constants.STD_CL
     arch: str = constants.STDCLASSIFIER
@@ -458,6 +478,12 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
     if args.h2d_transfer not in H2D_TRANSFERS:
         raise ValueError(f"h2d_transfer must be one of {H2D_TRANSFERS}, "
                          f"got {args.h2d_transfer!r}")
+    if args.eval_transfer not in EVAL_TRANSFERS:
+        raise ValueError(f"eval_transfer must be one of {EVAL_TRANSFERS}, "
+                         f"got {args.eval_transfer!r}")
+    if args.eval_sweep not in EVAL_SWEEPS:
+        raise ValueError(f"eval_sweep must be one of {EVAL_SWEEPS}, got "
+                         f"{args.eval_sweep!r}")
     # a batch of B shots expands to B (2 knn_tc + 1) frames
     if args.task == constants.TCAM and args.knn_tc > 0:
         args = args.replace(

@@ -32,10 +32,14 @@ class KeyChain:
 
     def key(self, *path, device="cuda") -> torch.Generator:
         """kc.key('train', epoch, step) -> a generator for that site."""
-        d = _digest(self.seed, path)
         g = torch.Generator(device=device)
-        g.manual_seed(int.from_bytes(d[:8], "little") % (2 ** 63))
+        g.manual_seed(self.seed_of(*path))
         return g
+
+    def seed_of(self, *path) -> int:
+        """The seed of key(*path)'s generator."""
+        d = _digest(self.seed, path)
+        return int.from_bytes(d[:8], "little") % (2 ** 63)
 
     def numpy_rng(self, *path) -> np.random.Generator:
         """Host-side RNG derived from the same tree (bit-equal to the JAX

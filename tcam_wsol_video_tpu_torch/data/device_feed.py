@@ -12,8 +12,9 @@ on the pipeline's device:
 - a CAM pool (N, h', w') float32 holds the stored stage-1 CAMs, and the
   stored thresholds (x 255, used only when sl_tc_knn == 0) stay beside it;
 - each epoch uploads its sampling plan once (pool rows, crop offsets,
-  flips, labels, CAM windows, thresholds: a few KB), and one assembly a
-  step gathers, crops and flips the pixels, heat-fuses the CAM window,
+  flips, labels, CAM windows, thresholds: a few KB), and one assembly
+  (make_assemble; the chunked runner of engine/scan_train.py calls it on
+  plan rows, epoch_plan) a step gathers, crops and flips the pixels, heat-fuses the CAM window,
   resizes, crops, flips and clips the fused CAM and takes its ROI and
   foreground size, all on the device: the compact batch of
   h2d_transfer=uint8 (`raw_u8`; the train step derives the normalized
@@ -238,6 +239,25 @@ class DeviceTrainFeed:
         if not steps:
             return {}, [], t_heat
         plan = {key: np.stack([st[key] for st in steps]) for key in steps[0]}
+        return plan, all_ids, t_heat
+
+    def epoch_plan(self, epoch: int, subset: Optional[np.ndarray] = None):
+        """The epoch's plan for the chunked runner (engine/scan_train.py),
+        with every frame it touches made resident in one burst before the
+        first dispatch (JAX DeviceTrainFeed.epoch_plan).  Returns (plan
+        {name: (n_steps, target[, T]) host array}, per-step frame ids, the
+        heat t); records the plan and pool-fill ms and the burst's misses
+        (distinct frames) and decodes as the epoch's counts."""
+        self.counts = {"pool_misses": 0, "pool_decodes": 0}
+        self.timing = {"pixels_ms": [], "assembly_ms": []}
+        self.ds.set_epoch(epoch)
+        t0 = time.perf_counter()
+        plan, all_ids, t_heat = self._plan_epoch(epoch, subset)
+        self.timing["plan_ms"] = [(time.perf_counter() - t0) * 1e3]
+        if all_ids:
+            t0 = time.perf_counter()
+            self._ensure_resident(np.unique(plan["rows"]))
+            self.timing["fill_ms"] = [(time.perf_counter() - t0) * 1e3]
         return plan, all_ids, t_heat
 
     def epoch(self, epoch: int, subset: Optional[np.ndarray] = None

@@ -147,16 +147,19 @@ class DataPipeline:
     def epoch_stats(self) -> dict:
         """The last epoch's data plane: its route, the mean ms per batch
         of each `timing` entry (data_<name>_per_step), the feed's plan ms
-        (data_plan_ms, once an epoch), the decoded-frame
+        (data_plan_ms, once an epoch) and, for the chunked runner, its
+        pool fill before the first dispatch (data_fill_ms), the decoded-frame
         cache's hits and misses in the epoch and the feed's pool misses
         (frames not resident when their step came) and decodes."""
         feed = self._device_feed
         timing = {"pixels_ms": [], "cams_ms": [], "assembly_ms": [],
                   **(feed.timing if feed is not None else self.timing)}
+        once = ("plan_ms", "fill_ms")
         out = {"data_route": self.data_route,
                **{f"data_{k}_per_step": float(np.mean(v)) if v else 0.0
-                  for k, v in timing.items() if k != "plan_ms"},
-               "data_plan_ms": float(sum(timing.get("plan_ms", [])))}
+                  for k, v in timing.items() if k not in once},
+               **{f"data_{k}": float(sum(timing.get(k, [])))
+                  for k in once}}
         cache = self._decode_cache
         hits, misses = ((cache.hits, cache.misses) if cache is not None
                         else (0, 0))

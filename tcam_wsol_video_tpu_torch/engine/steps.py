@@ -24,11 +24,19 @@ maps, the raw image, the model input and the reconstruction.  The
 student seed source (TCAM's sl_tc_epoch_switch_to_sl) takes the seeder's
 CAMs, ROI, box mask and foreground size from the best student's own maps
 (student_seed_inputs) in place of the batch's.
+
+The throughput knobs of the JAX step: `remat` recomputes the model forward
+in the backward (remat_forward); `loss_chunk` > 0 computes the F_CL/TCAM
+losses over groups of that many frames (MasterLoss.compute_chunked);
+`eval_transfer` uint16/uint8 packs the eval CAMs for the readback
+(dequantize_cams_np unpacks them).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from tcam_wsol_video_tpu_torch.cams import extractors as ex
@@ -40,6 +48,7 @@ from tcam_wsol_video_tpu_torch.data.transforms import normalize_u8_scaled
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
 from tcam_wsol_video_tpu_torch.models.factory import DTYPES
+from tcam_wsol_video_tpu_torch.models.resnet import frozen_statistics
 from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 
@@ -91,6 +100,44 @@ def student_seed_inputs(student, images: torch.Tensor, args,
             "fg_size": fg_size}
 
 
+def remat_forward(model, images: torch.Tensor, dtype: torch.dtype,
+                  dropout_generator: Optional[torch.Generator] = None
+                  ) -> dict:
+    """model(images, dtype, dropout_generator) under a non-reentrant
+    checkpoint (JAX's jax.checkpoint around the train step's apply): the
+    backward recomputes the forward instead of holding its activations.
+    The recompute must be the same function, which JAX's functional state
+    gives for free and torch's modules do not:
+    - BatchNorm in training mode folds its batch into the running
+      statistics; the recompute runs under frozen_statistics, so they are
+      folded in once;
+    - dropout masks come from dropout_generator, which checkpoint's
+      preserve_rng_state does not restore (it restores the default
+      generators, which the port never draws from): the recompute sets
+      the generator back to its state before the forward, then returns it
+      to where the forward left it."""
+    from torch.utils.checkpoint import checkpoint
+    gen = dropout_generator
+    before = gen.get_state() if gen is not None else None
+
+    @contextlib.contextmanager
+    def recompute():
+        after = gen.get_state() if gen is not None else None
+        if gen is not None:
+            gen.set_state(before)
+        try:
+            with frozen_statistics():
+                yield
+        finally:
+            if gen is not None:
+                gen.set_state(after)
+
+    return checkpoint(lambda x: model(x, dtype, gen), images,
+                      use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
+
+
 def make_train_step(master_loss: MasterLoss, args,
                     seeder_cfg: Optional[TCAMSeederCfg] = None,
                     classifier_model=None):
@@ -122,6 +169,9 @@ def make_train_step(master_loss: MasterLoss, args,
     cam_fn = (make_classifier_cam_fn(classifier_model, args)
               if classifier_model is not None else None)
     dtype = DTYPES[args.compute_dtype]
+    remat = bool(getattr(args, "remat", False))
+    # the loss side in groups of frames, for the seeded tasks (as JAX)
+    loss_chunk = 0 if std_cl else int(getattr(args, "loss_chunk", 0))
 
     def train_step(state: TrainState, batch, switches: Sequence[float],
                    seed_weighted: bool,
@@ -151,7 +201,11 @@ def make_train_step(master_loss: MasterLoss, args,
                                 gumbel=gumbel)
 
         model.train()
-        out = model(batch["image"], dtype, dropout_generator)
+        if remat:
+            out = remat_forward(model, batch["image"], dtype,
+                                dropout_generator)
+        else:
+            out = model(batch["image"], dtype, dropout_generator)
         logits = out["cl_logits"]
         if std_cl:
             inputs = LossInputs(epoch=state.epoch, cl_logits=logits,
@@ -166,7 +220,12 @@ def make_train_step(master_loss: MasterLoss, args,
                                 frm_iter=batch.get("frm_iter"),
                                 fg_size=batch.get("fg_size"),
                                 msk_bbox=batch.get("msk_bbox"))
-        total, holder = master_loss.compute(inputs, state.elb_t, switches)
+        if loss_chunk > 0:
+            total, holder = master_loss.compute_chunked(
+                inputs, state.elb_t, switches, loss_chunk)
+        else:
+            total, holder = master_loss.compute(inputs, state.elb_t,
+                                                switches)
 
         opt.zero_grad(set_to_none=False)
         total.backward()
@@ -249,7 +308,11 @@ def make_cam_eval_step(model, args):
     noise).  Then nan-guarded, resized to the crop
     (align_corners=False) and clipped.  With args.crf_post_process and
     raw_images (B, crop, crop, 3) in [0, 255], the CAM is then refined by
-    crf_pp_iters mean-field iterations."""
+    crf_pp_iters mean-field iterations.  args.eval_transfer packs the CAMs
+    for the readback as JAX's step does: uint16 holds floor(cam 255) 257
+    (the box protocol's uint8 grid, which /65535 gives back exactly),
+    uint8 floor(cam 255) (the protocol's own truncation); float32 returns
+    them as they are.  dequantize_cams_np unpacks them on the host."""
     if args.task not in PORTED_TASKS:
         raise NotImplementedError(f"the {args.task} eval step is not "
                                   "ported")
@@ -257,6 +320,7 @@ def make_cam_eval_step(model, args):
     crop = args.crop_size
     use_crf_pp = bool(args.crf_post_process)
     dtype = DTYPES[args.eval_compute_dtype]
+    transfer = str(getattr(args, "eval_transfer", "float32"))
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor,
@@ -286,9 +350,32 @@ def make_cam_eval_step(model, args):
             cam = mean_field_refine(raw_images, probs,
                                     num_iters=args.crf_pp_iters)[..., 1]
             cam = torch.nan_to_num(cam).clamp(0.0, 1.0)
-        return cam, out["cl_logits"]
+        return pack_cams(cam, transfer), out["cl_logits"]
 
     return eval_step
+
+
+def pack_cams(cam: torch.Tensor, transfer: str) -> torch.Tensor:
+    """CAMs in [0, 1] in the eval_transfer dtype (JAX make_cam_eval_step's
+    tail, box protocol): uint16 round(floor(cam 255) / 255 65535), uint8
+    floor(cam 255), float32 unchanged."""
+    if transfer == "uint16":
+        cam = torch.floor(cam * 255.0) / 255.0
+        return torch.round(cam * 65535.0).to(torch.int32).to(torch.uint16)
+    if transfer == "uint8":
+        return torch.floor(cam * 255.0).to(torch.uint8)
+    return cam
+
+
+def dequantize_cams_np(cams_np: np.ndarray) -> np.ndarray:
+    """The inverse of pack_cams after the readback (JAX
+    dequantize_cams_np): uint16 -> /65535, uint8 -> /255 (both exact on
+    the uint8 grid), float32 as it is."""
+    if cams_np.dtype == np.uint16:
+        return cams_np.astype(np.float32) / 65535.0
+    if cams_np.dtype == np.uint8:
+        return cams_np.astype(np.float32) / 255.0
+    return cams_np
 
 
 def make_classifier_cam_fn(classifier_model, args):

@@ -24,7 +24,18 @@ The host loop records per epoch the time blocked on the pipeline (data
 wait), the pipeline's own record of the epoch (its route, stream or the
 card-resident feed, and its timings and counts: DataPipeline.epoch_stats)
 and each step's time: on a CUDA device the span between CUDA events
-recorded before and after the step, on the CPU the host clock.
+recorded before and after the step, on the CPU the host clock; and the
+host's time to enqueue a step.
+
+The dispatch route (JAX's rule, engine/scan_train.engages): with the
+card-resident feed on and train_dispatch_chunk K > 0, an epoch runs K
+steps a dispatch (engine/scan_train.ChunkedEpochRunner: a CUDA graph of
+K steps on the card); the student seed source and recomputed CAMs keep
+the per-step loop.  Under the chunked route a step's time is its chunk's
+over K, the data wait is the plan and pool fill spread over the steps,
+rolling checkpoints land on chunk boundaries and the log_every records
+come from the per-step losses at the epoch's end.  Each epoch record
+names its `dispatch` route and K.
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.engine.evaluator import CamEvaluator
 from tcam_wsol_video_tpu_torch.engine.lr import build_lr_fn
 from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer, set_lr
+from tcam_wsol_video_tpu_torch.engine import scan_train
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
 from tcam_wsol_video_tpu_torch.losses.build import get_loss
@@ -107,6 +119,9 @@ class Trainer:
             None if args.task == constants.STD_CL
             else seeder_cfg_from_args(args),
             classifier_model=classifier if self._recompute_cams else None)
+        self._needs_seeds = (args.task != constants.STD_CL
+                             and bool(args.sl_tc or args.sl_fc))
+        self._chunk_runner: Optional[scan_train.ChunkedEpochRunner] = None
         # the epoch switch's student, built when it engages
         self._student = None
         self._student_epoch: Optional[int] = None
@@ -177,45 +192,29 @@ class Trainer:
         use_student = self._student_for(epoch)
         student = self._student if use_student else None
 
+        feed = getattr(self.train_pipe, "_device_feed", None)
+        chunked = scan_train.engages(args, feed, use_student,
+                                     self._recompute_cams)
+        t_epoch = time.perf_counter()
+        if chunked:
+            run = self._run_chunked_epoch(epoch, feed, switches,
+                                          seed_weighted)
+        else:
+            run = self._run_per_step_epoch(epoch, switches, seed_weighted,
+                                           student)
+        wall_ms = (time.perf_counter() - t_epoch) * 1e3
         zero = torch.zeros((), device=self.device)
         tot_loss, n_corr, n = zero.clone(), zero.clone(), zero.clone()
         terms: Dict[str, torch.Tensor] = {}
-        clock = SpanClock(self.device)
-        wait_ms: List[float] = []
-        t_epoch = time.perf_counter()
-        batches = iter(self.train_pipe.epoch(epoch))
-        i = 0
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            wait_ms.append((time.perf_counter() - t0) * 1e3)
-            if batch is None:
-                break
-            dev_batch = {k: v for k, v in batch.items() if k != "image_id"}
-            gen = self.kc.key("train", epoch, i, device=self.device)
-            drop_gen = self.kc.key("dropout", epoch, i, device=self.device)
-            begin = clock.start()
-            metrics = self.train_step(self.state, dev_batch, switches,
-                                      seed_weighted=seed_weighted,
-                                      generator=gen, student=student,
-                                      dropout_generator=drop_gen)
-            clock.stop(begin)
+        for metrics in run["metrics"]:
             tot_loss += metrics["loss"]
             n_corr += metrics["n_correct"]
             n += metrics["n"]
             for k, v in metrics.items():
                 if k not in ("loss", "n_correct", "n"):
                     terms[k] = terms.get(k, zero) + v
-            i += 1
-            if (args.checkpoint_save > 0
-                    and self.state.step % args.checkpoint_save == 0):
-                self._save_checkpoint()
-            if args.log_every and i % args.log_every == 0:
-                self.logger.log({"split": "train", "epoch": epoch, "it": i,
-                                 "loss": float(metrics["loss"])},
-                                step=self.state.step)
-        step_ms = clock.millis()
-        wall_ms = (time.perf_counter() - t_epoch) * 1e3
+        i = len(run["metrics"])
+        step_ms = run["step_ms"]
 
         # epoch end: ELB anneal, then a checkpoint holding the annealed t
         self.state.elb_t = update_t(self.state.elb_t, args.elb_mulcoef,
@@ -231,9 +230,15 @@ class Trainer:
             "n": int(n), "steps": i, "wall_ms": wall_ms,
             "median_step_ms": float(np.median(step_ms)) if step_ms else 0.0,
             "step_ms": step_ms,
-            # the last wait is the end of the epoch, not a step's
-            "data_wait_ms_per_step": float(np.mean(wait_ms[:-1]))
-            if i else 0.0,
+            "data_wait_ms_per_step": run["data_wait_ms_per_step"],
+            # the host's time to enqueue a step (a chunk's over its steps)
+            "host_enqueue_ms_per_step": run["enqueue_ms_per_step"],
+            "dispatch": "chunked" if chunked else "per_step",
+            "dispatch_chunk": int(args.train_dispatch_chunk) if chunked
+            else 0,
+            # the host ms of the epoch's CUDA graph captures (warm-up
+            # included)
+            "capture_ms": run["capture_ms"],
             # the data plane: its route; the host's pixels and CAM side,
             # the feed's assembly; cache hits and misses, pool misses and
             # decodes
@@ -256,16 +261,102 @@ class Trainer:
             step=self.state.step)
         return out
 
+    def _run_per_step_epoch(self, epoch: int, switches, seed_weighted: bool,
+                            student) -> dict:
+        """One step a dispatch over the pipeline's batches.  Returns the
+        per-step metrics, step ms (CUDA events on the card), the mean data
+        wait and the host's enqueue ms a step."""
+        args = self.args
+        clock = SpanClock(self.device)
+        wait_ms: List[float] = []
+        enqueue_ms: List[float] = []
+        out: List[dict] = []
+        batches = iter(self.train_pipe.epoch(epoch))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait_ms.append((time.perf_counter() - t0) * 1e3)
+            if batch is None:
+                break
+            i = len(out)
+            dev_batch = {k: v for k, v in batch.items() if k != "image_id"}
+            t0 = time.perf_counter()
+            gen = self.kc.key("train", epoch, i, device=self.device)
+            drop_gen = self.kc.key("dropout", epoch, i, device=self.device)
+            begin = clock.start()
+            metrics = self.train_step(self.state, dev_batch, switches,
+                                      seed_weighted=seed_weighted,
+                                      generator=gen, student=student,
+                                      dropout_generator=drop_gen)
+            clock.stop(begin)
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(metrics)
+            if (args.checkpoint_save > 0
+                    and self.state.step % args.checkpoint_save == 0):
+                self._save_checkpoint()
+            if args.log_every and (i + 1) % args.log_every == 0:
+                self.logger.log({"split": "train", "epoch": epoch,
+                                 "it": i + 1,
+                                 "loss": float(metrics["loss"])},
+                                step=self.state.step)
+        return {"metrics": out, "step_ms": clock.millis(),
+                # the last wait is the end of the epoch, not a step's
+                "data_wait_ms_per_step": float(np.mean(wait_ms[:-1]))
+                if out else 0.0,
+                "enqueue_ms_per_step": float(np.mean(enqueue_ms))
+                if out else 0.0, "capture_ms": 0.0}
+
+    def _run_chunked_epoch(self, epoch: int, feed, switches,
+                           seed_weighted: bool) -> dict:
+        """K steps a dispatch (engine/scan_train.py, JAX
+        Trainer._run_chunked_epoch).  A rolling checkpoint is saved at the
+        end of a chunk whose steps cross a multiple of checkpoint_save;
+        the log_every records come from the per-step losses at the end."""
+        args = self.args
+        chunk = int(args.train_dispatch_chunk)
+        runner = self._chunk_runner
+        if runner is None or runner.chunk != chunk or runner.feed is not feed:
+            runner = self._chunk_runner = scan_train.ChunkedEpochRunner(
+                feed, self.train_step, chunk, self._needs_seeds)
+        host_step = self.state.step
+
+        def on_chunk(offset: int, k: int, metrics) -> None:
+            if (args.checkpoint_save > 0
+                    and self.state.step // args.checkpoint_save
+                    > (self.state.step - k) // args.checkpoint_save):
+                self._save_checkpoint()
+
+        rec = runner.run_epoch(self.state, epoch, self.kc, switches,
+                               seed_weighted, on_chunk=on_chunk)
+        if args.log_every:
+            for i, m in enumerate(rec["metrics"]):
+                if (i + 1) % args.log_every == 0:
+                    self.logger.log({"split": "train", "epoch": epoch,
+                                     "it": i + 1, "loss": float(m["loss"])},
+                                    step=host_step + i + 1)
+        n = max(rec["steps"], 1)
+        return {"metrics": rec["metrics"],
+                "step_ms": [ms / k for ms, k in zip(rec["chunk_ms"],
+                                                    rec["chunk_k"])
+                            for _ in range(k)],
+                "data_wait_ms_per_step": (rec["plan_ms"]) / n,
+                "enqueue_ms_per_step": sum(rec["enqueue_ms"]) / n,
+                "capture_ms": sum(rec["capture_ms"])}
+
     # --------------------------------------------------------------- eval
-    def evaluate(self, epoch: int, split: str, snapshot: str = "") -> Dict:
+    def evaluate(self, epoch: int, split: str, snapshot: str = "",
+                 on_device: Optional[bool] = None) -> Dict:
         """One pass over `split`; `snapshot` names the weights in the
-        record (the test passes at the best snapshots)."""
+        record (the test passes at the best snapshots).  on_device: the
+        approximate device counters (default args.on_device_eval, as the
+        JAX trainer's every pass)."""
         ds, pipe = self.eval_pipes[split]
         res = CamEvaluator(
             self.model, self.args, ds, pipe, split,
             fast=self.args.fast_eval,
             generator=self.kc.key("eval", split, epoch,
-                                  device=self.device)).run()
+                                  device=self.device),
+            on_device=on_device).run()
         rec = {"split": split, "epoch": epoch, "snapshot": snapshot,
                **{k: v for k, v in res.items()
                   if isinstance(v, (int, float))}, **res["timing"]}

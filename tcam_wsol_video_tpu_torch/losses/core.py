@@ -1,7 +1,9 @@
 """Loss framework (port of losses/core.py): elementary losses with an
-inclusive epoch window, and the master container summing them."""
+inclusive epoch window, and the master container summing them, whole or
+over equal groups of frames (loss_chunk, MasterLoss.compute_chunked)."""
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -62,6 +64,19 @@ class ElementaryLoss:
     def compute(self, inputs: LossInputs, t: float) -> Tensor:
         raise NotImplementedError
 
+    def compute_numden(self, inputs: LossInputs, t: float
+                       ) -> Tuple[Tensor, Tensor]:
+        """(numerator, denominator) whose sums over equal chunks of the
+        batch give the loss over the whole batch.  The default weight is
+        the chunk's frame count, which is right for every loss that
+        averages over frames (or over a count proportional to them: the
+        CRFs, the ELB priors, the entropy, the reconstruction); a loss
+        with a data-dependent denominator (the CE over seeded pixels)
+        overrides it."""
+        b = float(inputs.fcams.shape[0]) if inputs.fcams is not None else 1.0
+        v = self.compute(inputs, t).float()
+        return v * b, torch.full((), b, dtype=torch.float32, device=v.device)
+
 
 class MasterLoss:
     """Sum of elementary losses: total = sum_i switch_i * loss_i."""
@@ -88,5 +103,56 @@ class MasterLoss:
             # fp32 terms, as JAX's float32 switches promote them
             v = loss.compute(inputs, t).float() * float(on)
             holder[loss.__name__] = v
+            total = total + v
+        return total, holder
+
+    def compute_chunked(self, inputs: LossInputs, t: float,
+                        switches: List[float], chunk: int
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """The losses over equal groups of `chunk` frames (loss_chunk), each
+        group's body checkpointed so that the backward holds one group's
+        buffers at a time (JAX's lax.map of jax.checkpoint(body)).  Per
+        loss: sum_c num_c / max(sum_c den_c, 1) (compute_numden), exact up
+        to float association.  The batch must be a whole number of
+        chunks, and a loss over clips (clip_len > 1) needs chunks of whole
+        clips."""
+        from torch.utils.checkpoint import checkpoint
+        b = inputs.fcams.shape[0]
+        if chunk < 1 or b % chunk:
+            raise ValueError(f"loss_chunk {chunk} does not divide the batch "
+                             f"of {b} frames")
+        for loss in self.losses:
+            clip = getattr(loss, "clip_len", 1)
+            if clip > 1 and chunk % clip:
+                raise ValueError(f"loss_chunk {chunk} splits clips of "
+                                 f"{clip} frames ({loss.__name__})")
+        if b // chunk == 1:
+            return self.compute(inputs, t, switches)
+        names = [f.name for f in dataclasses.fields(inputs)
+                 if isinstance(getattr(inputs, f.name), torch.Tensor)
+                 and getattr(inputs, f.name).dim() >= 1
+                 and getattr(inputs, f.name).shape[0] == b]
+        static = {f.name: getattr(inputs, f.name)
+                  for f in dataclasses.fields(inputs) if f.name not in names}
+
+        def body(*tensors):
+            ci = LossInputs(**static, **dict(zip(names, tensors)))
+            nums, dens = zip(*(loss.compute_numden(ci, t)
+                               for loss in self.losses))
+            return (torch.stack([n.float() for n in nums]),
+                    torch.stack([d.float() for d in dens]))
+
+        num = den = 0.0
+        for c0 in range(0, b, chunk):
+            n_c, d_c = checkpoint(
+                body, *(getattr(inputs, k)[c0:c0 + chunk] for k in names),
+                use_reentrant=False)
+            num = num + n_c
+            den = den + d_c
+        per_loss = num / den.clamp_min(1.0)
+        holder = {loss.__name__: per_loss[i] * float(on)
+                  for i, (loss, on) in enumerate(zip(self.losses, switches))}
+        total = 0.0
+        for v in holder.values():
             total = total + v
         return total, holder

@@ -8,7 +8,8 @@ import torch
 
 
 def elb(fx: torch.Tensor, t: float) -> torch.Tensor:
-    t = torch.as_tensor(t, dtype=torch.float32, device=fx.device)
+    # a fill on fx's device, not a host copy (CUDA graphs capture it)
+    t = torch.full((), float(t), dtype=torch.float32, device=fx.device)
     fx = fx.float()
     ct = -1.0 / (t * t)
     log_branch = -(1.0 / t) * torch.log((-fx).clamp_min(1e-30))

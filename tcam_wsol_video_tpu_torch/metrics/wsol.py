@@ -1,6 +1,6 @@
 """MaxBoxAcc counters of the box protocol (port of metrics/wsol.py
-BoxEvaluator, fed by the native sweep's per-tau best IoU) and the
-classification accuracy.
+BoxEvaluator, fed by the native sweep's per-tau best IoU or by the device
+sweep's per-level hits) and the classification accuracy.
 
 Per IoU threshold sigma in iou_threshold_list and per CAM threshold tau,
 an image counts when its best box IoU at tau is >= sigma / 100; MaxBoxAcc
@@ -35,6 +35,28 @@ class BoxEvaluator:
         self.curves: Dict = {}
         self.top1: List[float] = []
         self.top5: List[float] = []
+
+    def accumulate_level_hits(self, level_hits: np.ndarray, peak: int,
+                              target: int,
+                              preds_ordered: np.ndarray) -> None:
+        """One image from the device sweep (metrics/device_sweep.
+        level_hits): level_hits (256, S) bool, S ordered as
+        iou_threshold_list; peak the uint8 rendering's max.  Each tau
+        maps to its level by the protocol's int(tau peak) truncation."""
+        levels = (np.asarray(self.cam_threshold_list, np.float64)
+                  * int(peak)).astype(np.int64)
+        np.clip(levels, 0, 255, out=levels)
+        hits = level_hits[levels]                       # (n_tau, S)
+        top1_hit = target == preds_ordered[0]
+        top5_hit = target in preds_ordered[:5]
+        for si, sigma in enumerate(self.iou_threshold_list):
+            h = hits[:, si].astype(np.float64)
+            self.num_correct[sigma] += h
+            if top1_hit:
+                self.num_correct_top1[sigma] += h
+            if top5_hit:
+                self.num_correct_top5[sigma] += h
+        self.cnt += 1
 
     def accumulate_best_iou(self, per_tau: np.ndarray, target: int,
                             preds_ordered: np.ndarray) -> None:

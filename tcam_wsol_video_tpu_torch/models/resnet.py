@@ -17,6 +17,7 @@ lecun_normal, biases zero, BatchNorm scale 1 and bias 0.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
@@ -64,6 +65,23 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+_FROZEN_STATISTICS = [False]
+
+
+@contextlib.contextmanager
+def frozen_statistics():
+    """Within: BatchNorm2d in training mode normalizes with the batch's
+    statistics as always but leaves its running buffers and counter as
+    they are (a recomputed forward, engine/steps.py remat, must not fold
+    the batch in a second time)."""
+    prev = _FROZEN_STATISTICS[0]
+    _FROZEN_STATISTICS[0] = True
+    try:
+        yield
+    finally:
+        _FROZEN_STATISTICS[0] = prev
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's running-statistics update.
 
@@ -91,6 +109,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         # torch updates (and autograd saves) the copy, which stays intact
         n = x.numel() // x.shape[1]
         var_t = self.running_var.clone()
+        if _FROZEN_STATISTICS[0]:
+            return F.batch_norm(x, self.running_mean.clone(), var_t,
+                                self.weight, self.bias, training=True,
+                                momentum=self.momentum, eps=self.eps)
         out = F.batch_norm(x, self.running_mean, var_t, self.weight,
                            self.bias, training=True, momentum=self.momentum,
                            eps=self.eps)

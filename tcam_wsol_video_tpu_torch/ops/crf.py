@@ -95,7 +95,7 @@ def gaussian_filter_apply_rff(feats: torch.Tensor, vals: torch.Tensor,
     (P, K) fp32."""
     p, d = feats.shape
     if omega is None:
-        omega = _fixed_frequencies(int(n_freq), d)
+        omega = _fixed_frequencies_on(int(n_freq), d, feats.device)
     omega = omega.to(device=feats.device, dtype=torch.float32)
     acc = torch.zeros((p, vals.shape[1]), dtype=torch.float32,
                       device=feats.device)
@@ -106,7 +106,22 @@ def gaussian_filter_apply_rff(feats: torch.Tensor, vals: torch.Tensor,
     return acc / float(omega.shape[0])
 
 
+@functools.lru_cache(maxsize=8)
+def _fixed_frequencies_on(n_freq: int, d: int, device: torch.device
+                          ) -> torch.Tensor:
+    """_fixed_frequencies copied to `device` once (a copy at each call
+    would wait on the card's queue, and a CUDA graph cannot capture it)."""
+    return _fixed_frequencies(n_freq, d).to(device)
+
+
 # ---------------------------------------------------- landmark (Nystrom)
+@functools.lru_cache(maxsize=16)
+def _landmark_indices_on(h: int, w: int, m: int, device: torch.device
+                         ) -> torch.Tensor:
+    """_landmark_grid_indices as an int64 tensor on `device`, made once."""
+    return torch.from_numpy(_landmark_grid_indices(h, w, m)).to(device)
+
+
 def _landmark_grid_indices(h: int, w: int, m: int) -> np.ndarray:
     """~m flat pixel indices on a uniform spatial grid (aspect-matched);
     the same indices as the JAX package's."""
@@ -195,7 +210,7 @@ def bilateral_filter_batch(images: torch.Tensor, segs: torch.Tensor,
     feats = make_bilateral_features(images, sigma_rgb, sigma_xy)
     vals = segs.reshape(b, h * w, k).float().contiguous()
     if method == "landmarks":
-        idx = _landmark_grid_indices(h, w, n_landmarks)
+        idx = _landmark_indices_on(h, w, n_landmarks, feats.device)
         feats = (feats - feats.mean(dim=1, keepdim=True)).contiguous()
         out = gaussian_filter_apply_landmarks(feats, vals, idx)
     elif method == "rff":

@@ -32,12 +32,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+# every LaunchCounter made, so that a CUDA graph's launches can be counted
+# per replay (engine/scan_train.py)
+COUNTERS: list = []
+
+
 class LaunchCounter:
-    """Kernel launches (and plain-version calls) since the last reset."""
+    """Kernel launches (and plain-version calls) since the last reset.  A
+    wrapper counts where it launches; a CUDA graph that captured it counts
+    its capture's launches again at each replay."""
 
     def __init__(self):
         self.kernel = 0
         self.plain = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.kernel = 0

@@ -193,4 +193,36 @@ def test_the_ported_keys():
               "im_rec_elb", "img_range", "sl_fc", "sl_block", "sl_tc_block",
               "crf_fc", "crf_lambda", "entropy_fc", "max_sizepos_fc_end_ep"):
         assert _same(getattr(TCAMConfig(), k), ref[k]), k
-    assert len(KEYS) == 153 and set(KEYS) <= set(ref)
+    assert len(KEYS) == 162 and set(KEYS) <= set(ref)
+
+
+THROUGHPUT = {"train_dispatch_chunk": "4", "eval_transfer": "uint16",
+              "eval_sweep": "device", "eval_pipeline_depth": "2",
+              "eval_device_cache": "true", "eval_device_cache_mb": "64",
+              "loss_chunk": "6", "remat": "yes", "on_device_eval": "true"}
+
+
+def test_throughput_keys_parse_as_jax():
+    """The 9 keys of the throughput layer: JAX's defaults, and each flag
+    coerced to JAX's type and value."""
+    ref = jhp.get_config("YouTube-Objects-v1.0")
+    for k in THROUGHPUT:
+        assert _same(getattr(TCAMConfig(), k), ref[k]), k
+    got = _assert_parse_equal([a for k, v in THROUGHPUT.items()
+                               for a in (f"--{k}", v)])
+    assert (got.train_dispatch_chunk, got.remat, got.on_device_eval,
+            got.eval_device_cache_mb) == (4, True, True, 64)
+
+
+@pytest.mark.parametrize("bad", [dict(eval_transfer="uint4"),
+                                 dict(eval_sweep="tpu")],
+                         ids=["eval_transfer", "eval_sweep"])
+def test_throughput_checks_raise_as_jax(bad):
+    cfg = jhp.get_config("YouTube-Objects-v1.0")
+    cfg.update(bad)
+    with pytest.raises(AssertionError):
+        jhp.finalize(jhp.HParams(cfg))
+    with pytest.raises(ValueError):
+        finalize(TCAMConfig().replace(**bad))
+    for transfer in ("float32", "uint16", "uint8"):
+        assert finalize(TCAMConfig(eval_transfer=transfer))

@@ -424,3 +424,148 @@ def test_f_cl_step_through_the_exact_kernel_matches_plain(card,
         if v.is_floating_point():
             assert abs(float(out["kernel"][k]) - float(v)) <= \
                 STEP_RTOL * abs(float(v)), k
+
+
+# ----------------------------------------------------- the throughput layer
+@pytest.fixture(scope="module")
+def card_set(tmp_path_factory):
+    """A small synthetic set written with nvJPEG and a stand-in CAM store
+    (12 train shots: 6 steps of 2 an epoch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tcam_wsol_video_tpu_torch.data.synthetic import (
+        make_stand_in_cam_store, make_synthetic_dataset)
+    root = str(tmp_path_factory.mktemp("graphs"))
+    out = make_synthetic_dataset(root, device=torch.device("cuda"))
+    make_stand_in_cam_store(out["metadata_root"], root + "/cams")
+    return root, out["metadata_root"]
+
+
+def _feed_trainer(card, card_set, chunk: int, outd: str):
+    """A Trainer over the card-resident feed (uint8 batches, exact CRF,
+    fp32, the small ResNet) at train_dispatch_chunk `chunk`; two builds
+    start from the same weights."""
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core.config import (finalize,
+                                                       stage2_tcam_recipe)
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.engine.trainer import Trainer
+    from tcam_wsol_video_tpu_torch.models import resnet
+    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+    root, meta = card_set
+    args = finalize(stage2_tcam_recipe(
+        crop_size=64, resize_size=80, batch_size=2, eval_batch_size=8,
+        compute_dtype="float32", data_root=root, metadata_root=meta,
+        std_cams_folder=root + "/cams", h2d_transfer="uint8",
+        train_device_cache_mb=64, train_dispatch_chunk=chunk, log_every=1,
+        checkpoint_save=0, outd=outd, max_epochs=1,
+        cam_curve_interval=0.05))
+    kc = KeyChain(0)
+    args, train_pipe, eval_pipes = cli_train.build_data(args, kc, card)
+    torch.manual_seed(0)
+    model = UnetTCAM(resnet.ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP",
+                     args.num_classes, freeze_cl=True).to(card)
+    return Trainer(args, model, train_pipe, eval_pipes, keychain=kc,
+                   device=card)
+
+
+def _logged_losses(outd: str) -> list:
+    import glob
+    import json
+    (path,) = glob.glob(outd + "/**/log.json", recursive=True)
+    with open(path) as f:
+        return [json.loads(x)["loss"] for x in f
+                if '"it"' in x and '"split": "train"' in x]
+
+
+def test_graphed_chunks_match_eager_steps(card, card_set, tmp_path,
+                                          monkeypatch):
+    """An epoch of 6 steps as CUDA graphs of 4 steps and a tail of 2
+    against the per-step loop from the same weights: the plan, the first
+    step's loss (the same kernels on the same inputs), the epoch loss
+    within JAX's rtol 1e-3, and kernel 1 counted once a step through the
+    replays.  cuDNN's deterministic algorithms: its default backward of
+    this small fp32 model adds in a varying order, which moves the second
+    step's loss by ~2e-4 whatever the route."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = {}
+    for chunk in (0, 4):
+        tr = _feed_trainer(card, card_set, chunk, str(tmp_path / str(chunk)))
+        bilateral.counts.reset()
+        rec = tr.train_epoch(0)
+        runs[chunk] = (rec, bilateral.counts.kernel, bilateral.counts.plain,
+                       _logged_losses(str(tmp_path / str(chunk))), tr)
+    per, gr = runs[0], runs[4]
+    assert per[0]["dispatch"] == "per_step" and gr[0]["dispatch"] == "chunked"
+    assert per[0]["steps"] == gr[0]["steps"] == 6
+    assert per[0]["n"] == gr[0]["n"]
+    assert per[1] == gr[1] == 6 and per[2] == gr[2] == 0
+    runner = gr[4]._chunk_runner
+    assert (runner.replays, runner.captures) == (2, 2)
+    assert len(per[3]) == len(gr[3]) == 6
+    assert abs(gr[3][0] - per[3][0]) <= 1e-6 * abs(per[3][0])
+    assert abs(gr[0]["loss"] - per[0]["loss"]) <= 1e-3 * abs(per[0]["loss"])
+
+
+def test_device_sweep_on_the_card_matches_the_host_sweep(card):
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.metrics import device_sweep, native_sweep
+    from tcam_wsol_video_tpu_torch.metrics.wsol import BoxEvaluator
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:56, 0:56]
+    cams = []
+    for i in range(12):
+        cam = np.zeros((56, 56))
+        for _ in range(1 + i % 3):
+            cy, cx, s = rng.uniform(8, 48), rng.uniform(8, 48), \
+                rng.uniform(3, 10)
+            cam = np.maximum(cam, np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                                         / (2 * s * s)))
+        cams.append(cam)
+    cams = np.stack(cams).astype(np.float32)
+    cams[0, 20:30, 20:30] = 0.2                          # a hole
+    gt = rng.integers(0, 30, (12, 2, 4)).astype(np.int32)
+    gt[..., 2:] += 20
+    gv = np.ones((12, 2), bool)
+    hits, peak, fb = device_sweep.sweep_batch(torch.from_numpy(cams).to(card),
+                                              gt, gv, (30, 50, 70))
+    want = device_sweep.sweep_batch(torch.from_numpy(cams), gt, gv,
+                                    (30, 50, 70))
+    for g, w in zip((hits, peak, fb), want):
+        assert torch.equal(g.cpu(), w)
+    taus = np.arange(0.0, 1.0, 0.001)
+    host = BoxEvaluator(taus, (30, 50, 70))
+    dev = BoxEvaluator(taus, (30, 50, 70))
+    best, _ = native_sweep.sweep_best_iou(cams, taus, list(gt))
+    for i in range(12):
+        host.accumulate_best_iou(best[i], 0, np.arange(5))
+        dev.accumulate_level_hits(hits[i].cpu().numpy(), int(peak[i]), 0,
+                                  np.arange(5))
+    assert not fb.any()
+    assert host.compute() == dev.compute()
+    for s in (30, 50, 70):
+        assert np.array_equal(host.num_correct[s], dev.num_correct[s])
+
+
+def test_capture_failure_raises_without_an_eager_retry(card, card_set,
+                                                       tmp_path):
+    """A step that reads a value back to the host cannot be captured: the
+    runner raises, the step ran once eagerly (the warm-up, undone) and
+    once under capture, and the weights are those before the epoch."""
+    tr = _feed_trainer(card, card_set, 4, str(tmp_path / "bad"))
+    calls = {"n": 0}
+    step = tr.train_step
+
+    def syncing_step(*a, **k):
+        calls["n"] += 1
+        out = step(*a, **k)
+        float(out["loss"])
+        return out
+
+    tr.train_step = syncing_step
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    with pytest.raises(RuntimeError):
+        tr.train_epoch(0)
+    assert calls["n"] == 2 and tr.state.step == 0
+    for k, v in tr.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
