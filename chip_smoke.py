@@ -96,7 +96,22 @@ Phases (any failure raises and the script exits non-zero):
  15. path I: the F_CL task (UnetFCAM, every F-CAM loss and im_rec, the
      exact CRF) through cli/train.main for 2 epochs, kernel 1 once a
      step, each loss term printed; then cli/evaluate.main on its
-     best-localization snapshot against the trainer's test pass;
+     best-localization snapshot against the trainer's test pass; then
+     path M, the C_BOX task: cli/train.main with --config
+     config_yaml/ytov1_cbox.yaml (DenseBoxNet on ResNet-50, bs 32 /
+     224 px, every C_BOX loss, the 65 / 60 blur, 10 seeds, size_data
+     priors) for 2 epochs over path E's dumped CAM store, its encoder and
+     frozen classifier from path E's stage-1 folder, no kernel launched
+     (no CRF); the valid-box share and loss terms per epoch; then
+     cli/evaluate.main on its best-localization snapshot against the
+     trainer's test pass; then the hold: a DenseBoxNet on path E's
+     stage-1 encoder whose box head gives valid boxes, one C_BOX train
+     step and one eval step on path M's first train batch on the card
+     and on the CPU from the same state and injected noise (fp32, TF32
+     off): the same valid boxes, every loss term live and within 1e-3,
+     the box head's update within 1e-2 of its largest entry; and the
+     step's Gaussian blur and one frozen-classifier forward timed apart
+     with CUDA events at path M's dtype;
  16. path J (on path D's set): stage 1 (cli/train.main STD_CL, bs 32 /
      224 px, 1 epoch, the default dtypes) on VGG16/GAP,
      InceptionV3/WildCat (its SPG dropout live), ResNet-101/LSE and
@@ -2156,6 +2171,281 @@ def phase_f_cl(seed: int, data: dict) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# --------------------------------------------------- path M: the C_BOX task
+PATH_M_EPOCHS = 2
+CBOX_YAML = os.path.join(ROOT, "config_yaml", "ytov1_cbox.yaml")
+CBOX_TERMS = {"area_box", "cl_scoring", "seed_cbox", "box_bounds"}
+
+
+def path_m_flags(root: str, store: str, s1_outd: str, outd: str) -> list:
+    """config_yaml/ytov1_cbox.yaml (DenseBoxNet on ResNet-50, every C_BOX
+    loss, the 65 / 60 blur, 10 seeds, size_data priors) on the synthetic
+    set at bs 32 / 224 px for PATH_M_EPOCHS epochs, over the CAM store
+    `store` and the stage-1 folder `s1_outd` (the encoder, and the frozen
+    classifier)."""
+    return common_flags(root) + [
+        "--config", CBOX_YAML, "--batch_size", "32", "--eval_batch_size",
+        "32", "--max_epochs", str(PATH_M_EPOCHS), "--checkpoint_save", "0",
+        "--std_cams_folder", store, "--folder_pre_trained_cl", s1_outd,
+        "--outd", outd, "--exp_id", "m"]
+
+
+# path M's step held against the CPU (fp32, TF32 off): each loss term
+# within CBOX_TERM_RTOL of the CPU's, the box head's update within
+# CBOX_UPDATE_RTOL of its largest entry; the eval step's boxes within
+# CBOX_BOX_ATOL pixels, its logits within CBOX_TERM_RTOL of their largest
+CBOX_TERM_RTOL = 1e-3
+CBOX_UPDATE_RTOL = 1e-2
+CBOX_BOX_ATOL = 1e-2
+# the box head's bias of the held model, (x1, y1, x2, y2) in pixels (x on
+# the height axis): a valid box of area share ~0.5 at 224 px, above every
+# class's size prior, so that every C_BOX loss is live; its weight is
+# scaled by CBOX_HOLD_WEIGHT, so that the boxes vary by a few pixels
+CBOX_HOLD_BOX = (40.0, 32.0, 184.0, 192.0)
+CBOX_HOLD_WEIGHT = 0.1
+
+
+def phase_cbox_hold(seed: int, args, s1_outd: str) -> dict:
+    """Path M's parts at its own shapes: one C_BOX train step and one eval
+    step of DenseBoxNet (path E's stage-1 encoder, a box head that gives
+    valid boxes) with path M's frozen classifier on path M's first train
+    batch, on the card and on the CPU from the same state and the same
+    injected noise, fp32 with TF32 off; then, at path M's compute dtype
+    and TF32 setting, the Gaussian blur and one classifier forward of the
+    step timed with CUDA events."""
+    import copy
+
+    from tcam_wsol_video_tpu_torch.cams.seeding import \
+        cbox_seeder_cfg_from_args
+    from tcam_wsol_video_tpu_torch.cli.train import (
+        build_data, load_pretrained_classifier_weights,
+        load_seeder_classifier)
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.data.folds import build_size_priors
+    from tcam_wsol_video_tpu_torch.engine.cbox_steps import (
+        make_cbox_eval_step, make_cbox_train_step)
+    from tcam_wsol_video_tpu_torch.engine.lr import build_lr_fn
+    from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
+    from tcam_wsol_video_tpu_torch.engine.state import TrainState
+    from tcam_wsol_video_tpu_torch.losses.build import get_loss
+    from tcam_wsol_video_tpu_torch.models.factory import (
+        DTYPES, create_model_from_args)
+    from tcam_wsol_video_tpu_torch.ops.box_stats import gaussian_blur
+
+    fargs = args.replace(compute_dtype="float32",
+                         eval_compute_dtype="float32")
+    kc = KeyChain(seed)
+    fargs, train_pipe, eval_pipes = build_data(fargs, kc, "cuda")
+    batch = {k: v for k, v in next(iter(train_pipe.epoch(0))).items()
+             if k != "image_id"}
+    b, crop = batch["image"].shape[0], fargs.crop_size
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = create_model_from_args(fargs, device="cuda")
+    load_pretrained_classifier_weights(fargs, model)
+    with torch.no_grad():
+        model.box_head.weight.mul_(CBOX_HOLD_WEIGHT)
+        model.box_head.bias.copy_(torch.tensor(CBOX_HOLD_BOX))
+    classifier, _ = load_seeder_classifier(fargs, kc, "cuda")
+    priors = build_size_priors(eval_pipes[constants.VALIDSET][0].md, crop,
+                               fargs.num_classes)["min_s"]
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(np.finfo(np.float32).tiny, 1.0, (b, 2, crop * crop))
+    noise = {"normal": rng.standard_normal(b),
+             "gumbel": -np.log(-np.log(u)),
+             "z": rng.uniform(fargs.cb_seed_bg_low_z, fargs.cb_seed_bg_up_z,
+                              b)}
+    noise = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in noise.items()}
+
+    def run(dev):
+        m = copy.deepcopy(model).to(dev)
+        cls = copy.deepcopy(classifier).to(dev)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        boxes, valid, logits = make_cbox_eval_step(m, cls, fargs)(
+            bt["image"])
+        ml = get_loss(fargs)
+        state = TrainState(m, build_optimizer(fargs, m,
+                                              build_lr_fn(fargs)(0)),
+                           elb_t=fargs.elb_init_t)
+        before = {k: v.detach().clone()
+                  for k, v in m.box_head.state_dict().items()}
+        met = make_cbox_train_step(ml, fargs, cbox_seeder_cfg_from_args(
+            fargs), cls, priors)(
+                state, bt, ml.switches(0),
+                noise={k: v.to(dev) for k, v in noise.items()})
+        return {"boxes": boxes.cpu(), "valid": valid.cpu(),
+                "logits": logits.float().cpu(),
+                "terms": {k: float(met[k]) for k in CBOX_TERMS},
+                "valid_boxes": int(met["valid_boxes"]),
+                "update": {k: (v.detach() - before[k]).cpu()
+                           for k, v in m.box_head.state_dict().items()}}
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = run("cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {"box_px": float((card["boxes"] - cpu["boxes"]).abs().max()),
+            "logits": float((card["logits"] - cpu["logits"]).abs().max()
+                            / cpu["logits"].abs().max())}
+    for k in CBOX_TERMS:
+        errs[k] = abs(card["terms"][k] - cpu["terms"][k]) / abs(
+            cpu["terms"][k])
+    for k, v in cpu["update"].items():
+        errs[f"box_head.{k}"] = float(
+            (card["update"][k] - v).abs().max() / v.abs().max())
+    print(f"[path M hold] one step of {b} frames at {crop} px, fp32 (TF32 "
+          f"off), card vs CPU: valid boxes {card['valid_boxes']} / "
+          f"{cpu['valid_boxes']}; terms card "
+          + ", ".join(f"{k} {card['terms'][k]:.8g}" for k in sorted(
+              CBOX_TERMS)) + "; CPU "
+          + ", ".join(f"{k} {cpu['terms'][k]:.8g}" for k in sorted(
+              CBOX_TERMS)) + "; errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol: terms and logits {CBOX_TERM_RTOL}, box head update "
+          f"{CBOX_UPDATE_RTOL}, boxes {CBOX_BOX_ATOL} px); CPU side "
+          f"{cpu_s:.2f} s", flush=True)
+    check(card["valid_boxes"] == cpu["valid_boxes"] == b
+          and bool(card["valid"].all()) and bool(cpu["valid"].all()),
+          f"path M hold: valid boxes card {card['valid_boxes']}, CPU "
+          f"{cpu['valid_boxes']} of {b}")
+    check(all(np.isfinite(cpu["terms"][k]) and cpu["terms"][k] != 0.0
+              for k in CBOX_TERMS),
+          f"path M hold: a loss term is not live: {cpu['terms']}")
+    check(all(v.abs().max() > 0 for v in cpu["update"].values()),
+          "path M hold: the box head did not move")
+    check(errs["box_px"] <= CBOX_BOX_ATOL
+          and errs["logits"] <= CBOX_TERM_RTOL
+          and all(errs[k] <= CBOX_TERM_RTOL for k in CBOX_TERMS)
+          and all(v <= CBOX_UPDATE_RTOL for k, v in errs.items()
+                  if k.startswith("box_head.")),
+          f"path M hold: the card is off the CPU: {errs}")
+
+    # the step's parts at path M's own dtype and TF32 setting
+    dtype = DTYPES[args.compute_dtype]
+    images = batch["image"]
+    blur_ms = cuda_call_ms(lambda: gaussian_blur(
+        images, args.cb_cl_score_blur_ksize, args.cb_cl_score_blur_sigma),
+        reps=10)
+    composite = images.clone().requires_grad_(True)
+    classify_ms = cuda_call_ms(
+        lambda: classifier(composite, dtype)["cl_logits"], reps=10)
+    print(f"[path M parts] at {args.compute_dtype}, {b} x {crop} px: "
+          f"Gaussian blur {args.cb_cl_score_blur_ksize} / "
+          f"{args.cb_cl_score_blur_sigma} median "
+          f"{statistics.median(blur_ms):.3f} ms, one frozen-classifier "
+          f"forward (input with gradient) median "
+          f"{statistics.median(classify_ms):.3f} ms (3 a step), CUDA "
+          f"events, 10 calls each", flush=True)
+    return {"terms_card": card["terms"], "terms_cpu": cpu["terms"],
+            "valid_boxes": card["valid_boxes"], "errors": errs,
+            "cpu_s": cpu_s, "blur_ms": blur_ms, "classify_ms": classify_ms}
+
+
+def phase_cbox(seed: int, data: dict, s1_outd: str) -> dict:
+    """Path M: cli/train.main with path_m_flags over path E's dumped CAM
+    store and stage-1 folder (counts reset just before; no kernel may
+    launch: C_BOX has no CRF), then cli/evaluate.main on its
+    best-localization snapshot against the trainer's test pass."""
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_eval
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+
+    root = data["root"]
+    store = os.path.join(root, "cam_store")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with conv_weight_dtypes() as seen:
+        out = cli_train.main(path_m_flags(root, store, s1_outd,
+                                          os.path.join(root, "exps_m")))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    args = out["args"]
+    print(f"[path M] --config {os.path.relpath(CBOX_YAML, ROOT)}: task "
+          f"{args.task}, arch {args.arch} on {args.encoder_name}, blur "
+          f"{args.cb_cl_score_blur_ksize} / {args.cb_cl_score_blur_sigma}, "
+          f"cb_seed_n {args.cb_seed_n}, min size "
+          f"{args.cb_pp_box_min_size_type}; frozen classifier from the "
+          f"stage-1 snapshot at step {out['seeder_step']}", flush=True)
+    check(args.task == "C_BOX" and args.arch == "DenseBoxNet"
+          and args.encoder_name == "resnet50" and args.batch_size == 32
+          and args.crop_size == 224 and args.cb_cl_score_blur_ksize == 65
+          and args.cb_seed_n == 10, "path M: not the recipe's C_BOX at "
+          f"bs 32 / 224 px: {args.task} {args.arch} {args.encoder_name} bs "
+          f"{args.batch_size} crop {args.crop_size} blur "
+          f"{args.cb_cl_score_blur_ksize} seeds {args.cb_seed_n}")
+    check(out["seeder_step"] is not None and out["seeder_step"] > 0,
+          f"path M: the frozen classifier is not a trained stage-1 snapshot "
+          f"(step {out['seeder_step']})")
+    convs = check_conv_dtypes("path M", seen, {"bfloat16", "float32"})
+    rep = report_trainer("path M", out, PATH_M_EPOCHS)
+    steps = rep["steps"]
+    train = out["records"]["train"]
+    for r in train:
+        print(f"[path M epoch {r['epoch']}] valid boxes "
+              f"{100 * r['valid_box_share']:.2f}% of {r['n']} frames; terms "
+              + ", ".join(f"{k} {v:.6g}" for k, v in r["terms"].items()),
+              flush=True)
+        check(set(r["terms"]) == CBOX_TERMS and all(
+            np.isfinite(v) for v in r["terms"].values()),
+              f"path M: loss terms {r['terms']}")
+        check(0.0 <= r["valid_box_share"] <= 1.0,
+              f"path M: valid-box share {r['valid_box_share']}")
+    print(f"[path M launches] {launches}; cli/train.main {wall_s:.2f} s, "
+          f"peak {peak:.2f} GiB", flush=True)
+    check(all(c["kernel"] == 0 and c["plain"] == 0
+              for c in launches.values()),
+          f"path M: a CRF kernel or plain version ran: {launches}")
+
+    t0 = time.perf_counter()
+    with conv_weight_dtypes() as seen:
+        ev = cli_eval.main(common_flags(root) + [
+            "--config", CBOX_YAML, "--eval_batch_size", "32",
+            "--folder_pre_trained_cl", s1_outd, "--exp_dir", out["outd"],
+            "--split", "test"])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    check_conv_dtypes("path M evaluate", seen, {"bfloat16", "float32"})
+    want = rep["best"]
+    gaps = {s: abs(ev[f"maxboxacc_{s}"] - want[f"maxboxacc_{s}"])
+            for s in (30, 50, 70)}
+    share = 100.0 / 320
+    print(f"[path M test best_localization] MaxBoxAcc 30/50/70 "
+          + "/".join(f"{want[f'maxboxacc_{s}']:.2f}" for s in (30, 50, 70))
+          + f", classification {want['classification']:.2f}; evaluate "
+          + "/".join(f"{ev[f'maxboxacc_{s}']:.2f}" for s in (30, 50, 70))
+          + ", |evaluate - trainer| "
+          + "/".join(f"{g:.4f}" for g in gaps.values())
+          + f" (tol {share:.4f}, one image); {ev['timing']['images_per_s']:.1f}"
+          f" images/s; cli/evaluate.main {ev_s:.2f} s", flush=True)
+    check(ev["n_images"] == 320 and ev["timing"]["sweep"] == "bbox"
+          and max(gaps.values()) <= share,
+          f"path M: evaluate is {gaps} off the trainer's test pass")
+    check(read_counts() == launches, "path M: evaluate launched a kernel")
+    if max(want[f"maxboxacc_{s}"] for s in (30, 50, 70)) == 0.0:
+        print("[path M] every test box of the 2-epoch model is invalid or "
+              "missed: MaxBoxAcc and the evaluate gap compare 0 with 0; "
+              "the hold below holds the boxes, losses and update",
+              flush=True)
+    hold = phase_cbox_hold(seed, args, s1_outd)
+    return {"wall_s": wall_s, "evaluate_s": ev_s, "launches": launches,
+            "steps": steps, "train": train, "eval": out["records"]["eval"],
+            "test_best_loc": want, "evaluate": dict(ev),
+            "evaluate_gap": gaps, "conv_dtypes": convs, "hold": hold,
+            "blur_ms": hold["blur_ms"], "classify_ms": hold["classify_ms"],
+            "classifier_seeder_step": out["seeder_step"],
+            "peak_mem_gib": peak}
+
+
 # ------------------- path J: stage 1 on the other encoders and heads
 # (encoder, pooling head, CAM method): each new encoder, and each head
 # that builds maps, once
@@ -2875,12 +3165,14 @@ def main(argv=None) -> int:
                     help="also profile one train step (torch.profiler)")
     a = ap.parse_args(argv)
 
+    # the port first: without the checkout around the script this fails
+    # (ModuleNotFoundError, exit 1) on any machine, before any work
+    from tcam_wsol_video_tpu_torch.core import nativebuild
+    from tcam_wsol_video_tpu_torch.ops.cuda import build
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    from tcam_wsol_video_tpu_torch.core import nativebuild
-    from tcam_wsol_video_tpu_torch.ops.cuda import build
 
     smi = nvidia_smi()
     print(f"[device] {smi}; torch {torch.__version__} cuda "
@@ -2935,6 +3227,7 @@ def main(argv=None) -> int:
                                           result["chain"]["stage1_outd"])
     result["recipe_yaml"] = phase_recipe_yaml(SEED, data)
     result["f_cl"] = phase_f_cl(SEED, data)
+    result["cbox"] = phase_cbox(SEED, data, result["chain"]["stage1_outd"])
     result["stage1_encoders"] = phase_stage1_encoders(SEED, data)
     result["tcam_vgg16"] = phase_tcam_vgg16(SEED, data,
                                             result["stage1_encoders"])
@@ -2987,6 +3280,9 @@ def main(argv=None) -> int:
             "kernel"],
         "launches_path_k": result["tcam_vgg16"]["launches"][
             "bilateral_exact"]["kernel"],
+        # path M (C_BOX): no CRF, so 0
+        "launches_path_m": result["cbox"]["launches"]["bilateral_exact"][
+            "kernel"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -3121,6 +3417,23 @@ def main(argv=None) -> int:
                      for s in (30, 50, 70))
           + ", evaluate gap " + "/".join(
               f"{g:.4f}" for g in pi["evaluate_gap"].values()), flush=True)
+    pm = result["cbox"]
+    print(f"[summary] path M (C_BOX, --config ytov1_cbox.yaml): median step "
+          f"{per_epoch(pm['train'], 'median_step_ms')} ms (blur "
+          f"{statistics.median(pm['blur_ms']):.2f}, classifier forward "
+          f"{statistics.median(pm['classify_ms']):.2f} x 3, timed apart), "
+          f"data wait "
+          f"{per_epoch(pm['train'], 'data_wait_ms_per_step')} ms/step, "
+          f"valid boxes {per_epoch(pm['train'], 'valid_box_share')}, test "
+          f"MaxBoxAcc 30/50/70 " + "/".join(
+              f"{pm['test_best_loc'][f'maxboxacc_{s}']:.2f}"
+              for s in (30, 50, 70))
+          + ", evaluate gap " + "/".join(
+              f"{g:.4f}" for g in pm["evaluate_gap"].values())
+          + f", peak {pm['peak_mem_gib']:.2f} GiB, bilateral_exact "
+          f"{pm['launches']['bilateral_exact']['kernel']} launches; hold: "
+          f"{pm['hold']['valid_boxes']} valid boxes, card vs CPU max error "
+          f"{max(pm['hold']['errors'].values()):.3e}", flush=True)
     pj, pk, ue = (result["stage1_encoders"], result["tcam_vgg16"],
                   result["unet_encoders"])
     for enc, r in pj["runs"].items():

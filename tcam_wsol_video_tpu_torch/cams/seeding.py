@@ -1,5 +1,5 @@
 """Pseudo-label (seed) samplers, batched (port of cams/seeding.py
-tcam_seeder and fcam_seeder).
+tcam_seeder, fcam_seeder and cbox_seeder).
 
 Per sample: foreground seeds are drawn without replacement from the top
 max_p fraction of CAM pixels (inside the ROI when use_roi), uniformly or
@@ -14,6 +14,12 @@ the eroded STOtsu ROI of the CAM, background seeds uniformly in the
 bottom min_p fraction.  As in the JAX package, the F_CL train step seeds
 with tcam_seeder and the sl_tc_* keys; fcam_seeder has no caller on a
 path.
+
+cbox_seeder (C_BOX's SeederCBOX): n foreground seeds uniformly inside the
+eroded ROI floor(255 cam) > t, t the STOtsu threshold (on a constant map
+the lower middle of the sorted 255 cam), clamped to [1, 254]; n
+background seeds uniformly in the bottom ceil(z H W) pixels of the CAM,
+z ~ U[bg_low_z, bg_up_z] drawn per sample.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import torch
 
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.ops import morphology
-from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_batch
+from tcam_wsol_video_tpu_torch.ops.otsu import (otsu_threshold_255,
+                                                otsu_threshold_batch)
 
 _BISECT_ITERS = 8
 _BISECT_PROBES = 7
@@ -260,5 +267,65 @@ def fcam_seeder(cams: torch.Tensor, cfg: FCAMSeederCfg,
                  bg_elig, max(int(cfg.min_), 1))
     if cfg.min_ <= 0:
         bg = torch.zeros_like(bg)
+    return _finish_seeds(fg.reshape(b, h, w), bg.reshape(b, h, w), cfg.ksz,
+                         cfg.seg_ignore_idx)
+
+
+@dataclass(frozen=True)
+class CBoxSeederCfg:
+    n: int = 1               # fg and bg draws each
+    bg_low_z: float = 0.3    # the bg pool's fraction z ~ U[low, up]
+    bg_up_z: float = 0.4
+    fg_erode_k: int = 11
+    fg_erode_iter: int = 1
+    ksz: int = 3             # seed dilation kernel
+    seg_ignore_idx: int = constants.SEG_IGNORE_IDX
+
+
+def cbox_seeder_cfg_from_args(args) -> CBoxSeederCfg:
+    return CBoxSeederCfg(
+        n=args.cb_seed_n, bg_low_z=args.cb_seed_bg_low_z,
+        bg_up_z=args.cb_seed_bg_up_z, fg_erode_k=args.cb_seed_erode_k,
+        fg_erode_iter=args.cb_seed_erode_iter, ksz=args.cb_seed_ksz,
+        seg_ignore_idx=args.seg_ignore_idx)
+
+
+def cbox_seeder(cams: torch.Tensor, cfg: CBoxSeederCfg,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cams (B, H, W) in [0, 1] -> (B, H, W) int32 in {1, 0, ignore}.
+    gumbel (B, 2, H*W) gives the fg/bg Gumbel noise and z (B,) the bg
+    fractions explicitly; otherwise they are drawn from `generator`."""
+    b, h, w = cams.shape
+    p = h * w
+    dev = cams.device
+    if gumbel is None:
+        gumbel = gumbel_noise((b, 2, p), generator, dev)
+    if z is None:
+        u = torch.rand((b,), generator=generator, dtype=torch.float32,
+                       device=dev)
+        z = cfg.bg_low_z + (cfg.bg_up_z - cfg.bg_low_z) * u
+    flat = cams.reshape(b, p).float()
+    q = torch.floor(flat * 255.0)
+    th = otsu_threshold_255(q.reshape(b, h, w))
+    # a constant map: the lower middle element of the unfloored 255 cam
+    med = torch.sort(flat * 255.0, dim=1).values[:, (p - 1) // 2]
+    th = torch.where(q.amax(1) == q.amin(1), med, th)
+    th = torch.where(th == 0.0, 1.0, th)
+    th = torch.where(th >= 255.0, 254.0, th)
+    roi = (q > th[:, None]).float().reshape(b, h, w)
+    if cfg.fg_erode_iter > 0:
+        roi = morphology.erode(roi, cfg.fg_erode_k, cfg.fg_erode_iter)
+    k = max(int(cfg.n), 1)
+    fg_elig = roi.reshape(b, p) > 0
+    fg = _select(torch.where(fg_elig, gumbel[:, 0], float("-inf")),
+                 fg_elig, k)
+
+    n_bg = torch.clamp_max(torch.ceil(z * p).to(torch.int32), p)
+    bg_elig = (_top_fraction_mask_rows(-(flat + 1e-8), n_bg)
+               & (n_bg > 0)[:, None])
+    bg = _select(torch.where(bg_elig, gumbel[:, 1], float("-inf")),
+                 bg_elig, k)
     return _finish_seeds(fg.reshape(b, h, w), bg.reshape(b, h, w), cfg.ksz,
                          cfg.seg_ignore_idx)

@@ -7,7 +7,11 @@ one process).
         [--eval_checkpoint_type best_localization] [--device cpu]
 
 (--task F_CL --arch UnetFCAM for an F_CL run; --im_rec true when the
-run trained the reconstruction head, whose weights the snapshot holds.)
+run trained the reconstruction head, whose weights the snapshot holds;
+--task C_BOX --arch DenseBoxNet --folder_pre_trained_cl <stage 1> for a
+C_BOX run, whose frozen classifier is the stage-1 folder's
+tcam_pretrained_seeder_ch_pt snapshot, as in training: its boxes are
+scored instead of CAMs.)
 It loads the eval_checkpoint_type snapshot of --exp_dir into the model of
 --task, runs the split through the evaluator (the CAM of each image, the
 host box sweep, MaxBoxAcc at each IoU threshold, top-1 classification)
@@ -25,6 +29,7 @@ import os
 from typing import Dict, Optional, Sequence
 
 from tcam_wsol_video_tpu_torch.cli.train import (device_from, eval_dataset,
+                                                 load_seeder_classifier,
                                                  resolve_metadata_root)
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
@@ -67,9 +72,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     logger = ExpLogger(ns.exp_dir)
     logger.log(f"evaluating {args.eval_checkpoint_type} (step {step}) on "
                f"{ns.split}")
+    classifier = (load_seeder_classifier(args, kc, device)[0]
+                  if args.task == constants.C_BOX else None)
     res = CamEvaluator(model, args, ds, pipe, ns.split, fast=False,
-                       generator=kc.key("eval", ns.split,
-                                        device=device)).run()
+                       generator=kc.key("eval", ns.split, device=device),
+                       classifier=classifier).run()
     res.pop("curves", None)
     printable = {k: v for k, v in res.items()
                  if isinstance(v, (int, float, list))}

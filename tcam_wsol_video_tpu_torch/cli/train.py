@@ -1,5 +1,5 @@
-"""Training entry point of the STD_CL, F_CL and TCAM tasks (port of
-cli/train.py).
+"""Training entry point of the STD_CL, F_CL, TCAM and C_BOX tasks (port
+of cli/train.py).
 
     python -m tcam_wsol_video_tpu_torch.cli.train --task STD_CL \\
         --data_root <root> --metadata_root <folds> ... [--device cpu]
@@ -11,10 +11,14 @@ cli/train.py).
     python -m tcam_wsol_video_tpu_torch.cli.train --task F_CL \\
         --arch UnetFCAM --std_cams_folder <CAM store> --sl_fc true \\
         --crf_fc true --entropy_fc true --max_sizepos_fc true ...
+    python -m tcam_wsol_video_tpu_torch.cli.train \\
+        --config config_yaml/ytov1_cbox.yaml --data_root <root> \\
+        --metadata_root <folds> --std_cams_folder <CAM store> \\
+        --folder_pre_trained_cl <stage 1> [--device cpu]
 
 Flags are the JAX CLI's (core/config.py), with --config <yaml> applied
-before them.  It builds the data layer (over the CAM store for F_CL and
-TCAM; STD_CL reads no store), the model (random weights
+before them.  It builds the data layer (over the CAM store for F_CL,
+TCAM and C_BOX; STD_CL reads no store), the model (random weights
 from --seed, then the encoder and classifier of --folder_pre_trained_cl
 when given: a stage-1 experiment folder written by this package, whose
 tcam_pretrained_cl_ch_pt snapshot is read), and runs Trainer.fit:
@@ -22,7 +26,11 @@ validation, the epochs, model selection and the test split at the best
 snapshots.  TCAM with sl_tc and no --std_cams_folder recomputes its seed
 CAMs every step from a frozen stage-1 classifier: the encoder and head of
 the folder's tcam_pretrained_seeder_ch_pt snapshot, or random weights
-without a folder, as the JAX CLI does.  The train steps (and the seeder
+without a folder, as the JAX CLI does.  C_BOX trains DenseBoxNet, whose
+encoder (its only stage-1 component) comes from the folder's
+tcam_pretrained_cl_ch_pt snapshot, against the same frozen classifier
+(the seeder's snapshot, as in JAX, not cb_pretrained_cl_ch_pt); its
+seeds come from the CAM store.  The train steps (and the seeder
 classifier) compute in --compute_dtype (default bfloat16), validation and
 the test passes in --eval_compute_dtype (default float32); parameters,
 gradients and checkpoints stay float32.  It runs on the card unless
@@ -129,22 +137,25 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
 def _load_stage1_snapshot(folder: str, snapshot: str, model) -> int:
     """Loads the encoder and classification head of the best-model
     snapshot in folder/snapshot (folder itself when that is no folder)
-    into model; returns the snapshot's step."""
+    into model (those of the two it has); returns the snapshot's step."""
     chpt_dir = os.path.join(folder, snapshot)
     if not os.path.isdir(chpt_dir):
         chpt_dir = folder
     step, payload = ckpt.load_best_model(chpt_dir)
     if payload is None:
         raise FileNotFoundError(f"no best-model snapshot under {chpt_dir}")
+    # the components the model has: DenseBoxNet takes the encoder alone
     ckpt.load_components(model, payload["components"],
-                         only=["encoder", "classification_head"])
+                         only=[c for c in ("encoder", "classification_head")
+                               if isinstance(getattr(model, c, None),
+                                             torch.nn.Module)])
     return step
 
 
 def load_pretrained_classifier_weights(args: TCAMConfig, model) -> None:
     """The encoder and classification head of the stage-1 snapshot in
     --folder_pre_trained_cl (its tcam_pretrained_cl_ch_pt subfolder when
-    present)."""
+    present); DenseBoxNet's encoder alone."""
     if args.folder_pre_trained_cl:
         _load_stage1_snapshot(args.folder_pre_trained_cl,
                               args.tcam_pretrained_cl_ch_pt, model)
@@ -153,7 +164,8 @@ def load_pretrained_classifier_weights(args: TCAMConfig, model) -> None:
 def load_seeder_classifier(args: TCAMConfig, kc: KeyChain, device
                            ) -> Tuple[torch.nn.Module, Optional[int]]:
     """The frozen stage-1 classifier whose CAMs seed TCAM without a CAM
-    store (JAX cli/train.py): the STD_CL model of args, random weights
+    store, and which scores C_BOX's boxes (JAX cli/train.py and
+    cli/evaluate.py): the STD_CL model of args, random weights
     from the key chain's "cls" seed (the stage-2 model's draw from --seed
     is left as it is), then the encoder and classification head of the
     tcam_pretrained_seeder_ch_pt snapshot of --folder_pre_trained_cl
@@ -173,9 +185,9 @@ def load_seeder_classifier(args: TCAMConfig, kc: KeyChain, device
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Returns {'test': {snapshot: results}, 'records': per-epoch train
     and per-pass eval records, 'outd': the experiment folder,
-    'seeder_step': the step of the seeder classifier's snapshot (None
-    when no CAMs are recomputed, or its weights are random), 'args': the
-    finalized config}."""
+    'seeder_step': the step of the frozen classifier's snapshot (None
+    when there is none, or its weights are random), 'args': the finalized
+    config}."""
     extra = argparse.ArgumentParser(add_help=False)
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
@@ -188,7 +200,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         model = create_model_from_args(args, device=device)
     load_pretrained_classifier_weights(args, model)
     classifier, seeder_step = None, None
-    if (args.task == constants.TCAM and args.sl_tc
+    if args.task == constants.C_BOX or (
+            args.task == constants.TCAM and args.sl_tc
             and train_pipe.ds.cam_store is None):
         classifier, seeder_step = load_seeder_classifier(args, kc, device)
     if (args.task == constants.F_CL and (args.sl_fc or args.sl_tc)

@@ -6,8 +6,11 @@ package reads the same in the other, and `parse_args` takes the same
 command line: `--key value` flags (booleans as true/false, lists as
 [a, b]), `--config <yaml>` applied before them, and the reference's
 spellings (`--opt__*` aliases, runtime flags dropped with a warning).
-The keys of tasks and modules not ported yet (C_BOX, multi-GPU, the
-demo) are absent: a flag or a yaml key naming one is refused.
+The keys of modules not ported yet (multi-GPU, the demo and visuals, the
+image datasets) are absent: a flag or a yaml key naming one is refused.
+The keys that JAX parses and never reads (UNREAD_KEYS) are accepted at
+their defaults only: any other value raises, so that setting one cannot
+seem to change a run.
 `stage1_cam_recipe` gives the stage-1 classifier of
 config_yaml/ytov1_stage1_cam.yaml, `stage2_tcam_recipe` the
 stage-2 step flags of the end-to-end script, `stage2_tcam_production`
@@ -34,8 +37,15 @@ H2D_TRANSFERS = ("float32", "uint8")
 # the choices of eval_transfer and eval_sweep (JAX hparams.finalize)
 EVAL_TRANSFERS = ("float32", "uint16", "uint8")
 EVAL_SWEEPS = ("auto", "device", "host")
-# the tasks of the JAX package that are ported (C_BOX is not)
-PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM)
+# the tasks of the JAX package (its SEG task is vestigial there)
+PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM,
+                constants.C_BOX)
+# the keys that the JAX package parses and no module of either package
+# reads: finalize accepts each at its default only
+UNREAD_KEYS = ("encoder_weights", "in_channels", "scale_in",
+               "path_pre_trained", "strict", "seg_mode", "save_dir_models",
+               "cb_pretrained_cl_ch_pt", "cb_area_normed", "cb_pp_box_alpha",
+               "cb_seed_bg_z_type")
 # the encoders that JAX's models/factory.get_encoder builds
 ENCODER_NAMES = (constants.RESNET50, "resnet101", constants.VGG16,
                  constants.INCEPTIONV3)
@@ -68,6 +78,7 @@ class TCAMConfig:
     checkpoint_save: int = 100
     keep_last_n_checkpoints: int = 1
     log_every: int = 10
+    save_dir_models: str = ""   # UNREAD_KEYS
     # the train data plane (data/pipeline.py, data/device_feed.py):
     # uint8 pixels and packed CAM/ROI planes over host -> device, the
     # decoded-frame cache budget (MiB; 0 = off) and the card-resident
@@ -123,6 +134,14 @@ class TCAMConfig:
     wc_alpha: float = 0.6
     wc_dropout: float = 0.0
     freeze_cl: bool = False
+    # UNREAD_KEYS (scale_in reaches no computation in JAX either)
+    encoder_weights: str = "imagenet"
+    in_channels: int = 3
+    scale_in: float = 1.0
+    path_pre_trained: str = ""
+    strict: bool = True
+    seg_mode: str = constants.BINARY_MODE
+    multi_label_flag: bool = False
     # the classifier's CAM of class label + 1 (a background class at 0)
     support_background: bool = False
     folder_pre_trained_cl: str = ""
@@ -258,6 +277,48 @@ class TCAMConfig:
     max_sizepos_fc_lambda: float = 1.0
     max_sizepos_fc_start_ep: int = 0
     max_sizepos_fc_end_ep: int = -1
+    # C_BOX (DenseBoxNet): ELB on the box's area (AreaBox) and on the
+    # frozen classifier's scores of the fg/bg composites (ClScoring, the
+    # background a Gaussian blur of ksize / sigma), the CE of the box's
+    # masks against seeds from the CAM store (SeedCbox), and the smooth-L1
+    # pull towards the pre-forward's box (BoxBounds), which replaces a box
+    # that is invalid or under the minimum size (per class from the val
+    # GT, or cb_pp_box_min_size) by a centred one of area ~ N(size, var)
+    cb_pretrained_cl_ch_pt: str = constants.BEST_CL  # UNREAD_KEYS
+    cb_area_box: bool = False
+    cb_area_box_l: float = 1.0
+    cb_area_normed: bool = False    # UNREAD_KEYS: the step never sets it
+    cb_area_box_start_epoch: int = 0
+    cb_area_box_end_epoch: int = -1
+    cb_cl_score: bool = False
+    cb_cl_score_l: float = 1.0
+    cb_cl_score_start_epoch: int = 0
+    cb_cl_score_end_epoch: int = -1
+    cb_cl_score_blur_ksize: int = 65
+    cb_cl_score_blur_sigma: float = 60.0
+    cb_pp_box: bool = False
+    cb_pp_box_l: float = 1.0
+    cb_pp_box_start_epoch: int = 0
+    cb_pp_box_end_epoch: int = -1
+    cb_pp_box_alpha: float = 0.1    # UNREAD_KEYS
+    cb_pp_box_min_size_type: str = constants.SIZE_DATA
+    cb_pp_box_min_size: float = 0.05
+    cb_seed: bool = False
+    cb_seed_l: float = 1.0
+    cb_seed_start_epoch: int = 0
+    cb_seed_end_epoch: int = -1
+    cb_seed_erode_k: int = 11
+    cb_seed_erode_iter: int = 1
+    cb_seed_ksz: int = 3
+    cb_seed_n: int = 1
+    cb_seed_bg_low_z: float = 0.3
+    cb_seed_bg_up_z: float = 0.4
+    cb_seed_bg_z_type: str = constants.SIZE_DATA  # UNREAD_KEYS
+    cb_init_box_size: float = 0.95
+    cb_init_box_var: float = 0.015
+    cb_scale_domain: float = 1.0
+    # DenseBoxNet's encoder in eval mode and without gradient
+    freeze_encoder: bool = False
 
     def replace(self, **kw) -> "TCAMConfig":
         return dataclasses.replace(self, **kw)
@@ -432,6 +493,13 @@ def experiment_tag(args) -> str:
 
 def finalize(args: TCAMConfig) -> TCAMConfig:
     """Cross-key checks of the ported tasks, and the clip batch split."""
+    defaults = TCAMConfig()
+    for key in UNREAD_KEYS:
+        if getattr(args, key) != getattr(defaults, key):
+            raise ValueError(
+                f"{key} is read by no module (nor in the JAX package): only "
+                f"its default {getattr(defaults, key)!r} is accepted, got "
+                f"{getattr(args, key)!r}")
     if args.dataset not in constants.NUMBER_CLASSES:
         raise ValueError(f"dataset {args.dataset!r} is not ported")
     if args.spatial_pooling not in constants.SPATIAL_POOLINGS:
@@ -461,6 +529,8 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
             raise ValueError("TCAM needs a video dataset")
     if args.task == constants.F_CL and args.arch != constants.UNETFCAM:
         raise ValueError("F_CL trains the UnetFCAM arch")
+    if args.task == constants.C_BOX:
+        _check_cbox(args)
     if args.task not in PORTED_TASKS:
         raise NotImplementedError(f"task {args.task} is not ported")
     # as upstream, seeds are drawn per pixel: block seeding is a no-op
@@ -489,6 +559,27 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
         args = args.replace(
             batch_size=max(1, args.batch_size // (2 * args.knn_tc + 1)))
     return args
+
+
+def _check_cbox(args: TCAMConfig) -> None:
+    """JAX hparams.finalize's C_BOX checks."""
+    if args.arch != constants.DENSEBOXNET:
+        raise ValueError("C_BOX trains the DenseBoxNet arch")
+    if args.cb_pp_box_min_size_type not in constants.SIZE_TYPES:
+        raise ValueError("cb_pp_box_min_size_type must be one of "
+                         f"{constants.SIZE_TYPES}, got "
+                         f"{args.cb_pp_box_min_size_type!r}")
+    if args.cb_cl_score_blur_ksize % 2 != 1:
+        raise ValueError("cb_cl_score_blur_ksize must be odd")
+    if not 0.0 <= args.cb_seed_bg_low_z <= args.cb_seed_bg_up_z <= 1.0:
+        raise ValueError("need 0 <= cb_seed_bg_low_z <= cb_seed_bg_up_z "
+                         "<= 1")
+    if not 0.0 < args.cb_init_box_size <= 1.0:
+        raise ValueError("cb_init_box_size must lie in (0, 1]")
+    if args.cb_init_box_var < 0.0:
+        raise ValueError("cb_init_box_var must be >= 0")
+    if args.cb_seed_n < 1:
+        raise ValueError("cb_seed_n must be >= 1")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None,

@@ -5,11 +5,13 @@ core/constants.py (same names and values)."""
 STD_CL = "STD_CL"
 F_CL = "F_CL"
 TCAM = "TCAM"
+C_BOX = "C_BOX"
 
 # architectures
 STDCLASSIFIER = "STDClassifier"
 UNETTCAM = "UnetTCAM"
 UNETFCAM = "UnetFCAM"
+DENSEBOXNET = "DenseBoxNet"
 
 # pooling heads
 GAP = "GAP"
@@ -129,6 +131,15 @@ ROI_SELECT = (ROI_ALL, ROI_H_DENSITY, ROI_LARGEST)
 
 # folds under the data root when --metadata_root is relative
 RELATIVE_META_ROOT = "folds/wsol-done-right-splits"
+
+# C_BOX's minimum box size before its pre-forward re-draws a box: per
+# class from the val split's GT boxes, or the constant cb_pp_box_min_size
+SIZE_DATA = "size_data"
+SIZE_CONST = "size_constant"
+SIZE_TYPES = (SIZE_DATA, SIZE_CONST)
+
+# the segmentation mode (seg_mode, accepted at this default only)
+BINARY_MODE = "binary"
 
 # segmentation ignore index
 SEG_IGNORE_IDX = -255

@@ -243,3 +243,34 @@ def resized_gt_boxes(md: SplitMetadata, image_id: str,
     out = [resize_bbox(b, (w, h), (crop_size, crop_size))
            for b in md.boxes.get(image_id, [])]
     return np.asarray(out, np.float32).reshape(-1, 4)
+
+
+def build_size_priors(md: SplitMetadata, crop_size: int,
+                      num_classes: int) -> Dict[str, np.ndarray]:
+    """Per-class box-size priors from a split's GT boxes resized to
+    crop_size (JAX data/folds.build_size_priors): for each class the
+    min and max of each box's height and width over crop_size and of
+    their product, over every GT box.  Returns {'min_h', 'max_h',
+    'min_w', 'max_w', 'min_s', 'max_s'} -> (num_classes,) float32; a
+    class without boxes keeps min 0 and max 1 (C_BOX's pre-forward then
+    treats it as under size_constant)."""
+    mins = {k: np.full((num_classes,), np.inf, np.float32)
+            for k in ("min_h", "min_w", "min_s")}
+    maxs = {k: np.zeros((num_classes,), np.float32)
+            for k in ("max_h", "max_w", "max_s")}
+    for iid in md.image_ids:
+        lab = md.labels[iid]
+        for x0, y0, x1, y1 in resized_gt_boxes(md, iid, crop_size):
+            w = (x1 - x0) / float(crop_size)
+            h = (y1 - y0) / float(crop_size)
+            s = h * w
+            for k, v in (("min_h", h), ("min_w", w), ("min_s", s)):
+                mins[k][lab] = min(mins[k][lab], v)
+            for k, v in (("max_h", h), ("max_w", w), ("max_s", s)):
+                maxs[k][lab] = max(maxs[k][lab], v)
+    for k in mins:
+        mins[k] = np.where(np.isfinite(mins[k]), mins[k], 0.0
+                           ).astype(np.float32)
+    for k in maxs:
+        maxs[k] = np.where(maxs[k] > 0, maxs[k], 1.0).astype(np.float32)
+    return {**mins, **maxs}

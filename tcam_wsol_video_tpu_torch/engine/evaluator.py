@@ -28,6 +28,11 @@ The knobs, with JAX's defaults and meaning:
   budget the recording is dropped and the pass streams.
 - on_device (on_device_eval): the approximate covering-box counters of
   metrics/device_eval, summed on the device, for model selection only.
+
+C_BOX scores the predicted box of each image (engine/cbox_steps.py's eval
+step with the frozen classifier) against its GT boxes, an invalid box a
+miss at every tau: one batch at a time, without the knobs above, as JAX
+gates them.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.core.clock import SpanClock
 from tcam_wsol_video_tpu_torch.data.transforms import to_device
+from tcam_wsol_video_tpu_torch.engine.cbox_steps import make_cbox_eval_step
 from tcam_wsol_video_tpu_torch.engine.steps import (dequantize_cams_np,
                                                     make_cam_eval_step)
 from tcam_wsol_video_tpu_torch.metrics import (device_eval, device_sweep,
@@ -74,10 +80,11 @@ class CamEvaluator:
     def __init__(self, model, args, dataset, pipeline, split: str,
                  fast: bool = False, max_gt_boxes: int = 8,
                  generator: Optional[torch.Generator] = None,
-                 on_device: Optional[bool] = None):
+                 on_device: Optional[bool] = None, classifier=None):
         """generator: the noise of the CAM methods that draw it
         (SmoothGradCAM++, SSCAM), on the pipeline's device.  on_device:
-        the approximate device counters (default args.on_device_eval)."""
+        the approximate device counters (default args.on_device_eval).
+        classifier: C_BOX's frozen classifier (required there)."""
         self.model = model
         self.generator = generator
         self.args = args
@@ -90,16 +97,23 @@ class CamEvaluator:
             interval = constants.VALID_FAST_CAM_CURVE_INTERVAL
         self.taus = cam_threshold_list(interval)
         self.max_gt_boxes = max_gt_boxes
-        self.on_device = bool(getattr(args, "on_device_eval", False)
-                              if on_device is None else on_device)
+        self.cbox = args.task == constants.C_BOX
+        self.on_device = not self.cbox and bool(
+            getattr(args, "on_device_eval", False) if on_device is None
+            else on_device)
         # 'auto' is JAX's device sweep on a TPU backend only
         self.use_dev_sweep = (
-            not self.on_device and args.multi_contour_eval
+            not self.on_device and not self.cbox and args.multi_contour_eval
             and str(getattr(args, "eval_sweep", "auto")) == "device")
         self._sweep_fallbacks = 0   # images swept on the host by the cap
         self._sweep_seen = 0        # images through the device sweep
         self._sweep_disabled = False
-        self.eval_step = make_cam_eval_step(model, args)
+        if self.cbox:
+            if classifier is None:
+                raise ValueError("C_BOX's evaluation needs the classifier")
+            self.eval_step = make_cbox_eval_step(model, classifier, args)
+        else:
+            self.eval_step = make_cam_eval_step(model, args)
 
     def _gt_batch(self, image_ids):
         """(n, max_gt_boxes, 4) boxes and their mask.  Boxes past the cap
@@ -135,6 +149,8 @@ class CamEvaluator:
         per second, and the knobs that ran); with the exact sweep also
         top1_loc_<s>, top5_loc_<s>, best_tau and curves; with the device
         sweep sweep_fallbacks."""
+        if self.cbox:
+            return self._run_boxes()
         args = self.args
         evaluator = BoxEvaluator(self.taus, args.iou_threshold_list,
                                  multi_contour_eval=args.multi_contour_eval)
@@ -236,24 +252,10 @@ class CamEvaluator:
                 out[f"maxboxacc_{s}"] = float(a)
             out["curves"] = None
         else:
-            accs = evaluator.compute()
-            for s, a in zip(args.iou_threshold_list, accs):
-                out[f"maxboxacc_{s}"] = float(a)
-            for s, a in zip(args.iou_threshold_list, evaluator.top1):
-                out[f"top1_loc_{s}"] = float(a)
-            for s, a in zip(args.iou_threshold_list, evaluator.top5):
-                out[f"top5_loc_{s}"] = float(a)
-            out["best_tau"] = evaluator.best_tau_list
-            out["curves"] = evaluator.curves
-        out["n_images"] = n_total
+            out.update(self._box_results(evaluator))
         if self.use_dev_sweep:
             out["sweep_fallbacks"] = self._sweep_fallbacks
-        accs_only = [out[f"maxboxacc_{s}"] for s in args.iou_threshold_list]
-        out["localization"] = (float(np.mean(accs_only))
-                               if args.multi_iou_eval
-                               else out["maxboxacc_50"])
-        out["classification"] = (100.0 * counts["correct"]
-                                 / max(n_total, 1))
+        out.update(self._totals(out, counts["correct"], n_total))
         out["timing"] = {
             "seconds": wall, "batches": len(forward_ms),
             "forward_ms_per_batch": float(np.median(forward_ms))
@@ -266,6 +268,70 @@ class CamEvaluator:
             "device_cache": ("replayed" if cached is not None else
                              "recorded" if rec["on"] and rec["items"] else
                              "over_budget" if cache_ok else "off")}
+        return out
+
+    def _box_results(self, evaluator: BoxEvaluator) -> Dict:
+        """MaxBoxAcc, top-1 and top-5 localization at each IoU threshold,
+        the best taus and the curves of the exact protocol."""
+        ious = self.args.iou_threshold_list
+        out: Dict = {f"maxboxacc_{s}": float(a)
+                     for s, a in zip(ious, evaluator.compute())}
+        out.update({f"top1_loc_{s}": float(a)
+                    for s, a in zip(ious, evaluator.top1)})
+        out.update({f"top5_loc_{s}": float(a)
+                    for s, a in zip(ious, evaluator.top5)})
+        out["best_tau"] = evaluator.best_tau_list
+        out["curves"] = evaluator.curves
+        return out
+
+    def _totals(self, out: Dict, n_correct: int, n_total: int) -> Dict:
+        """n_images, localization (the mean MaxBoxAcc over the IoU
+        thresholds under multi_iou_eval, else at 50) and classification."""
+        accs = [out[f"maxboxacc_{s}"] for s in self.args.iou_threshold_list]
+        return {"n_images": n_total,
+                "localization": (float(np.mean(accs))
+                                 if self.args.multi_iou_eval
+                                 else out["maxboxacc_50"]),
+                "classification": 100.0 * n_correct / max(n_total, 1)}
+
+    def _run_boxes(self) -> Dict:
+        """C_BOX: each batch's predicted boxes, their validity and the
+        classifier's logits of the fg composite, read back and scored one
+        batch at a time."""
+        evaluator = BoxEvaluator(self.taus, self.args.iou_threshold_list,
+                                 multi_contour_eval=(
+                                     self.args.multi_contour_eval))
+        clock = SpanClock(self.pipe.device)
+        n_correct = n_total = 0
+        t_start = time.perf_counter()
+        for batch in self.pipe.epoch(0):
+            images, labels, valid, _, gt_boxes, gt_valid, _ = \
+                self._prep(batch)
+            begin = clock.start()
+            boxes, box_valid, logits = self.eval_step(images)
+            clock.stop(begin)
+            logits_np = logits.float().cpu().numpy()
+            boxes_np = boxes.cpu().numpy()
+            box_valid = box_valid.cpu().numpy()
+            labels, valid = labels.cpu().numpy(), valid.cpu().numpy()
+            preds = np.argsort(-logits_np, axis=-1, kind="stable")
+            n_correct += int(((preds[:, 0] == labels) & valid).sum())
+            n_total += int(valid.sum())
+            for i in np.flatnonzero(valid):
+                evaluator.accumulate_bbox(
+                    boxes_np[i].tolist(), int(box_valid[i]),
+                    gt_boxes[i][gt_valid[i]], int(labels[i]), preds[i])
+        wall = time.perf_counter() - t_start
+        forward_ms = clock.millis()
+        out = self._box_results(evaluator)
+        out.update(self._totals(out, n_correct, n_total))
+        out["timing"] = {
+            "seconds": wall, "batches": len(forward_ms),
+            "forward_ms_per_batch": float(np.median(forward_ms))
+            if forward_ms else 0.0,
+            "sweep_ms_per_image": 0.0,
+            "images_per_s": n_total / wall, "sweep": "bbox",
+            "pipeline_depth": 1, "device_cache": "off"}
         return out
 
     def _device_counters(self, cams, gt_boxes, gt_valid, valid, dev) -> None:

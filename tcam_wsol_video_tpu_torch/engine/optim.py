@@ -20,13 +20,13 @@ from torch import nn
 def param_group_labels(model: nn.Module, encoder_name: str
                        ) -> Dict[str, str]:
     """'head' for classifier-rate parameters (classification_head,
-    encoder.layer4* on ResNet and encoder.SPG_* on InceptionV3), 'base'
-    otherwise."""
+    DenseBoxNet's box_head, encoder.layer4* on ResNet and encoder.SPG_* on
+    InceptionV3), 'base' otherwise."""
     labels = {}
     for name, _ in model.named_parameters():
         keys = name.split(".")
         enc = len(keys) >= 2 and keys[0] == "encoder"
-        head = keys[0] == "classification_head" or (
+        head = keys[0] in ("classification_head", "box_head") or (
             enc and encoder_name.startswith("resnet")
             and keys[1].startswith("layer4")) or (
             enc and encoder_name == "inceptionv3"

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from tcam_wsol_video_tpu_torch.cams.seeding import gumbel_noise
+from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.data.transforms import to_device
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.ops.cuda.build import COUNTERS
@@ -293,9 +294,10 @@ class ChunkedEpochRunner:
 
 def engages(args, feed, use_student: bool, recompute_cams: bool) -> bool:
     """JAX's rule (engine/trainer.py): the chunked route runs when the
-    card-resident feed is on, train_dispatch_chunk > 0, the seeds do not
-    come from the student and the CAMs are not recomputed (and the task is
-    not C_BOX, which the port's config refuses)."""
+    card-resident feed is on, train_dispatch_chunk > 0, the task is not
+    C_BOX, the seeds do not come from the student and the CAMs are not
+    recomputed."""
     return (feed is not None
             and int(getattr(args, "train_dispatch_chunk", 0)) > 0
+            and args.task != constants.C_BOX
             and not use_student and not recompute_cams)

@@ -43,7 +43,6 @@ from tcam_wsol_video_tpu_torch.cams import extractors as ex
 from tcam_wsol_video_tpu_torch.cams.roi import roi_batch
 from tcam_wsol_video_tpu_torch.cams.seeding import TCAMSeederCfg, tcam_seeder
 from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS
 from tcam_wsol_video_tpu_torch.data.transforms import normalize_u8_scaled
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.losses.core import LossInputs, MasterLoss
@@ -51,6 +50,10 @@ from tcam_wsol_video_tpu_torch.models.factory import DTYPES
 from tcam_wsol_video_tpu_torch.models.resnet import frozen_statistics
 from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
+
+
+# the tasks whose steps are here: the model gives CAMs
+CAM_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM)
 
 
 def expand_compact_batch(batch: dict) -> dict:
@@ -158,8 +161,9 @@ def make_train_step(master_loss: MasterLoss, args,
     model (the student seed source of JAX's make_train_step): its maps
     replace the batch's seeder inputs (student_seed_inputs), and no CAMs
     are recomputed."""
-    if args.task not in PORTED_TASKS:
-        raise NotImplementedError(f"the {args.task} step is not ported")
+    if args.task not in CAM_TASKS:
+        raise ValueError(f"no {args.task} step here (C_BOX's is "
+                         "engine/cbox_steps.py)")
     std_cl = args.task == constants.STD_CL
     needs_seeds = not std_cl and bool(args.sl_tc or args.sl_fc)
     if needs_seeds and seeder_cfg is None:
@@ -313,9 +317,9 @@ def make_cam_eval_step(model, args):
     (the box protocol's uint8 grid, which /65535 gives back exactly),
     uint8 floor(cam 255) (the protocol's own truncation); float32 returns
     them as they are.  dequantize_cams_np unpacks them on the host."""
-    if args.task not in PORTED_TASKS:
-        raise NotImplementedError(f"the {args.task} eval step is not "
-                                  "ported")
+    if args.task not in CAM_TASKS:
+        raise ValueError(f"no {args.task} eval step here (C_BOX's is "
+                         "engine/cbox_steps.py)")
     std_cl = args.task == constants.STD_CL
     crop = args.crop_size
     use_crf_pp = bool(args.crf_post_process)

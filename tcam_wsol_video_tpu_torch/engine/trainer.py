@@ -1,6 +1,5 @@
-"""Training engine of the STD_CL, F_CL and TCAM tasks: epoch loop,
-evaluation, model selection and checkpoints (port of engine/trainer.py,
-the paths of the three tasks).
+"""Training engine of the STD_CL, F_CL, TCAM and C_BOX tasks: epoch loop,
+evaluation, model selection and checkpoints (port of engine/trainer.py).
 
 Each epoch: for TCAM, DecayTemp takes the epoch before the batches (it
 sets the dataset's CAM heat and whether seeds are weighted); the loss
@@ -36,6 +35,13 @@ over K, the data wait is the plan and pool fill spread over the steps,
 rolling checkpoints land on chunk boundaries and the log_every records
 come from the per-step losses at the epoch's end.  Each epoch record
 names its `dispatch` route and K.
+
+C_BOX (engine/cbox_steps.py) trains DenseBoxNet against the frozen
+stage-1 classifier given as `classifier`, one step a dispatch (JAX keeps
+it off the chunked route); under cb_pp_box_min_size_type size_data the
+minimum box sizes come from the val split's GT boxes
+(data/folds.build_size_priors).  Its epoch records add the share of
+valid boxes, and its evaluations score the predicted boxes.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
+from tcam_wsol_video_tpu_torch.cams.seeding import (cbox_seeder_cfg_from_args,
+                                                    seeder_cfg_from_args)
 from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
@@ -56,6 +63,8 @@ from tcam_wsol_video_tpu_torch.core.clock import SpanClock
 from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS, experiment_tag
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+from tcam_wsol_video_tpu_torch.data.folds import build_size_priors
+from tcam_wsol_video_tpu_torch.engine.cbox_steps import make_cbox_train_step
 from tcam_wsol_video_tpu_torch.engine.evaluator import CamEvaluator
 from tcam_wsol_video_tpu_torch.engine.lr import build_lr_fn
 from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer, set_lr
@@ -93,7 +102,8 @@ class Trainer:
         """eval_pipes: {split: (dataset, pipeline)}; classifier: the frozen
         stage-1 classifier, whose CAMs seed a TCAM run without a CAM
         store (the train step recomputes them, as the JAX trainer's
-        _recompute_cams does)."""
+        _recompute_cams does), and which scores C_BOX's boxes (required
+        there)."""
         if args.task not in PORTED_TASKS:
             raise NotImplementedError(f"the {args.task} trainer is not "
                                       "ported")
@@ -109,17 +119,28 @@ class Trainer:
         optimizer = build_optimizer(args, model, self.lr_fn(0))
         self.state = TrainState(model, optimizer, elb_t=args.elb_init_t)
         tcam = args.task == constants.TCAM
+        self.cbox = args.task == constants.C_BOX
+        self.classifier = classifier
         self._recompute_cams = (
             tcam and bool(args.sl_tc)
             and getattr(train_pipe.ds, "cam_store", None) is None
             and classifier is not None)
-        # F_CL seeds with the TCAM seeder and its sl_tc_* keys, as in JAX
-        self.train_step = make_train_step(
-            self.master_loss, args,
-            None if args.task == constants.STD_CL
-            else seeder_cfg_from_args(args),
-            classifier_model=classifier if self._recompute_cams else None)
-        self._needs_seeds = (args.task != constants.STD_CL
+        if self.cbox:
+            if classifier is None:
+                raise ValueError("C_BOX needs the frozen classifier")
+            self.train_step = make_cbox_train_step(
+                self.master_loss, args, cbox_seeder_cfg_from_args(args),
+                classifier, self._size_priors_min_s())
+        else:
+            # F_CL seeds with the TCAM seeder and its sl_tc_* keys, as in
+            # JAX
+            self.train_step = make_train_step(
+                self.master_loss, args,
+                None if args.task == constants.STD_CL
+                else seeder_cfg_from_args(args),
+                classifier_model=(classifier if self._recompute_cams
+                                  else None))
+        self._needs_seeds = (args.task in (constants.F_CL, constants.TCAM)
                              and bool(args.sl_tc or args.sl_fc))
         self._chunk_runner: Optional[scan_train.ChunkedEpochRunner] = None
         # the epoch switch's student, built when it engages
@@ -152,6 +173,18 @@ class Trainer:
         self.logger = ExpLogger(self.outd)
 
     # -------------------------------------------------------------- train
+    def _size_priors_min_s(self) -> Optional[np.ndarray]:
+        """C_BOX's per-class minimum area share from the val split's GT
+        boxes under cb_pp_box_min_size_type size_data, else None."""
+        if self.args.cb_pp_box_min_size_type != constants.SIZE_DATA:
+            return None
+        val = self.eval_pipes.get(constants.VALIDSET)
+        if val is None:
+            raise ValueError("cb_pp_box_min_size_type size_data needs a val "
+                             "split")
+        return build_size_priors(val[0].md, self.args.crop_size,
+                                 self.args.num_classes)["min_s"]
+
     def _save_checkpoint(self) -> None:
         ckpt.save_checkpoint(self.outd, self.state)
         ckpt.keep_last_n_checkpoints(self.outd,
@@ -205,13 +238,15 @@ class Trainer:
         wall_ms = (time.perf_counter() - t_epoch) * 1e3
         zero = torch.zeros((), device=self.device)
         tot_loss, n_corr, n = zero.clone(), zero.clone(), zero.clone()
+        valid_boxes = zero.clone()
         terms: Dict[str, torch.Tensor] = {}
         for metrics in run["metrics"]:
             tot_loss += metrics["loss"]
             n_corr += metrics["n_correct"]
             n += metrics["n"]
+            valid_boxes += metrics.get("valid_boxes", 0.0)
             for k, v in metrics.items():
-                if k not in ("loss", "n_correct", "n"):
+                if k not in ("loss", "n_correct", "n", "valid_boxes"):
                     terms[k] = terms.get(k, zero) + v
         i = len(run["metrics"])
         step_ms = run["step_ms"]
@@ -252,6 +287,9 @@ class Trainer:
             "student_epoch": self._student_epoch if use_student else None,
             "student_reloads": self.student_reloads - reloads_before,
         }
+        if self.cbox:
+            # the share of the epoch's frames whose trained box was valid
+            out["valid_box_share"] = float(valid_boxes) / max(1.0, float(n))
         self.meters["train_loss"].update(out["loss"], epoch)
         self.meters["train_classification"].update(out["classification"],
                                                    epoch)
@@ -356,7 +394,8 @@ class Trainer:
             fast=self.args.fast_eval,
             generator=self.kc.key("eval", split, epoch,
                                   device=self.device),
-            on_device=on_device).run()
+            on_device=on_device,
+            classifier=self.classifier if self.cbox else None).run()
         rec = {"split": split, "epoch": epoch, "snapshot": snapshot,
                **{k: v for k, v in res.items()
                   if isinstance(v, (int, float))}, **res["timing"]}

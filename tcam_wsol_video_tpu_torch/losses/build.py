@@ -1,11 +1,13 @@
 """MasterLoss assembly per task (port of losses/build.py): STD_CL is the
 classification CE; for F_CL and TCAM each flag adds its elementary loss
-with its lambda, epoch window and options (im_rec first, as in JAX)."""
+with its lambda, epoch window and options (im_rec first, as in JAX); C_BOX
+is losses/cbox.get_loss_cbox."""
 from __future__ import annotations
 
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.losses import fcam as fcam_losses
 from tcam_wsol_video_tpu_torch.losses import tcam as tcam_losses
+from tcam_wsol_video_tpu_torch.losses.cbox import get_loss_cbox
 from tcam_wsol_video_tpu_torch.losses.core import MasterLoss
 from tcam_wsol_video_tpu_torch.losses.std import ClLoss
 
@@ -17,6 +19,8 @@ def get_loss(args) -> MasterLoss:
         return get_loss_fcam(args)
     if args.task == constants.TCAM:
         return get_loss_tcam(args)
+    if args.task == constants.C_BOX:
+        return get_loss_cbox(args)
     raise NotImplementedError(f"the losses of task {args.task} are not "
                               "ported")
 

@@ -1,20 +1,33 @@
 """Extended log-barrier for constraints f(x) <= 0 (port of losses/elb.py):
 -log(-fx)/t where fx <= -1/t^2, else t*fx - log(1/t^2)/t + 1/t;
-mean-reduced; and the per-epoch anneal of t."""
+mean-reduced (elb), or over the masked entries only (elb_masked: C_BOX's
+valid boxes); and the per-epoch anneal of t."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 
-def elb(fx: torch.Tensor, t: float) -> torch.Tensor:
+def _elb_terms(fx: torch.Tensor, t: float) -> torch.Tensor:
     # a fill on fx's device, not a host copy (CUDA graphs capture it)
     t = torch.full((), float(t), dtype=torch.float32, device=fx.device)
     fx = fx.float()
     ct = -1.0 / (t * t)
     log_branch = -(1.0 / t) * torch.log((-fx).clamp_min(1e-30))
     lin_branch = t * fx - (1.0 / t) * torch.log(1.0 / (t * t)) + 1.0 / t
-    return torch.where(fx <= ct, log_branch, lin_branch).mean()
+    return torch.where(fx <= ct, log_branch, lin_branch)
+
+
+def elb(fx: torch.Tensor, t: float) -> torch.Tensor:
+    return _elb_terms(fx, t).mean()
+
+
+def elb_masked(fx: torch.Tensor, t: float, mask: torch.Tensor
+               ) -> torch.Tensor:
+    """The ELB's mean over the entries where mask is non-zero (0 when
+    none is)."""
+    m = mask.float()
+    return (_elb_terms(fx, t) * m).sum() / m.sum().clamp_min(1.0)
 
 
 def update_t(t: float, mulcoef: float, max_t: float) -> float:

@@ -5,13 +5,17 @@ sweep's per-level hits) and the classification accuracy.
 Per IoU threshold sigma in iou_threshold_list and per CAM threshold tau,
 an image counts when its best box IoU at tau is >= sigma / 100; MaxBoxAcc
 is the best tau's share, in percent.  top1 / top5 count only images whose
-class is the first / among the first five predictions.
+class is the first / among the first five predictions.  C_BOX predicts
+its box directly (accumulate_bbox): the same box at every tau, and an
+invalid box a miss at every tau.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from tcam_wsol_video_tpu_torch.ops.boxes import iou_matrix_np
 
 
 class BoxEvaluator:
@@ -71,6 +75,24 @@ class BoxEvaluator:
             if top5_hit:
                 self.num_correct_top5[sigma] += hit
         self.cnt += 1
+
+    def accumulate_bbox(self, bbox: Sequence[float], bbox_status: int,
+                        gt_boxes: np.ndarray, target: int,
+                        preds_ordered: np.ndarray) -> None:
+        """One image of C_BOX (JAX BoxEvaluator.accumulate's bbox path):
+        its predicted box (x0, y0, x1, y1) scored against gt_boxes (G, 4)
+        at every tau; bbox_status 0 (an invalid box) counts the image with
+        no hit."""
+        if bbox_status not in (0, 1):
+            raise ValueError(f"bbox_status must be 0 or 1: {bbox_status}")
+        if bbox_status == 0:
+            self.cnt += 1
+            return
+        best = iou_matrix_np(np.asarray([bbox], np.float64),
+                             np.asarray(gt_boxes, np.float64)).max()
+        self.accumulate_best_iou(
+            np.full(len(self.cam_threshold_list), best), target,
+            preds_ordered)
 
     def compute(self) -> List[float]:
         if self.cnt == 0:

@@ -1,5 +1,5 @@
-"""STDClassifier, the stage-1 model of task STD_CL (port of
-models/classifier.py), NCHW inside.
+"""STDClassifier, the stage-1 model of task STD_CL, and DenseBoxNet, the
+model of task C_BOX (port of models/classifier.py), NCHW inside.
 
 Encoder + pooling head on the last feature.  forward takes NHWC images,
 the compute dtype (models/resnet.py) and a generator for the dropout of
@@ -11,6 +11,13 @@ in that dtype.  The submodules are named `encoder` and
 stage-1 snapshot, and models/transplant.py maps the flax tree onto them
 by name.  `head_from_features` runs the head alone: the gradient CAM
 methods differentiate it with respect to the last feature.
+
+DenseBoxNet: encoder, the spatial mean of its last feature, and a
+Linear(C, 4) `box_head` giving one raw box (x1, y1, x2, y2) per image
+(ops/box_stats turns it into masks).  Under freeze_encoder the encoder
+stays in eval mode whatever the model's mode (BN reads its running
+statistics and leaves them as they are) and records no gradient, as
+JAX's encoder at train=False under stop_gradient.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from torch import nn
 
 from tcam_wsol_video_tpu_torch.models.poolings import build_pooling_head
+from tcam_wsol_video_tpu_torch.models.resnet import Linear
 
 
 class STDClassifier(nn.Module):
@@ -46,3 +54,26 @@ class STDClassifier(nn.Module):
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The pooling head alone on a (B, C, h, w) feature map."""
         return self.classification_head(feat, generator)
+
+
+class DenseBoxNet(nn.Module):
+    def __init__(self, encoder: nn.Module, freeze_encoder: bool = False):
+        super().__init__()
+        self.encoder = encoder
+        self.freeze_encoder = freeze_encoder
+        self.box_head = Linear(encoder.out_channels[-1], 4)
+
+    def train(self, mode: bool = True) -> "DenseBoxNet":
+        super().train(mode)
+        if self.freeze_encoder:
+            self.encoder.train(False)
+        return self
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None) -> dict:
+        # a frozen encoder's output takes no gradient: none is recorded
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_encoder):
+            features = self.encoder(x.permute(0, 3, 1, 2), dtype, generator)
+        z = features[-1].mean((2, 3))
+        return {"box": self.box_head(z), "features": features}

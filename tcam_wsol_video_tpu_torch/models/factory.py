@@ -1,5 +1,6 @@
 """Model factory (port of models/factory.py): STDClassifier (STD_CL),
-UnetFCAM (F_CL) and UnetTCAM (TCAM, the same model) on the ResNet-50,
+UnetFCAM (F_CL), UnetTCAM (TCAM, the same model) and DenseBoxNet (C_BOX,
+with freeze_encoder) on the ResNet-50,
 ResNet-101, VGG16 or InceptionV3 encoder and any pooling head, the last
 two with the optional image-reconstruction head (im_rec).  The U-Net's
 decoder has three blocks (256, 128, 64) and a center block on VGG, five
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.models.classifier import STDClassifier
+from tcam_wsol_video_tpu_torch.models.classifier import (DenseBoxNet,
+                                                         STDClassifier)
 from tcam_wsol_video_tpu_torch.models.inception import inceptionv3_wsol
 from tcam_wsol_video_tpu_torch.models.poolings import head_kwargs
 from tcam_wsol_video_tpu_torch.models.resnet import (resnet50_wsol,
@@ -51,7 +53,7 @@ def create_model(task: str, encoder_name: str = constants.RESNET50,
                  spatial_pooling: str = constants.WGAP,
                  freeze_cl: bool = False, im_rec: bool = False,
                  img_range: float = 1.0, head_kw: Optional[dict] = None,
-                 device="cuda") -> nn.Module:
+                 freeze_encoder: bool = False, device="cuda") -> nn.Module:
     """head_kw: build_pooling_head's keyword arguments (support_background
     and the heads' hyperparameters; poolings.head_kwargs of a config)."""
     head_kw = head_kw or {}
@@ -65,6 +67,8 @@ def create_model(task: str, encoder_name: str = constants.RESNET50,
                          seg_h_out_channels=2, freeze_cl=freeze_cl,
                          im_rec=im_rec, img_range=img_range,
                          center=encoder_name.startswith("vgg"), **head_kw)
+    elif task == constants.C_BOX:
+        model = DenseBoxNet(encoder, freeze_encoder=freeze_encoder)
     else:
         raise NotImplementedError(f"task {task} is not ported")
     return model.to(torch.device(device))
@@ -79,4 +83,5 @@ def create_model_from_args(args, override_arch_for_classifier: bool = False,
                         args.spatial_pooling,
                         args.freeze_cl and not override_arch_for_classifier,
                         im_rec=args.im_rec, img_range=args.img_range,
-                        head_kw=head_kwargs(args), device=device)
+                        head_kw=head_kwargs(args),
+                        freeze_encoder=args.freeze_encoder, device=device)

@@ -4,7 +4,8 @@ The inverse of the JAX package's models/import_torch.py: conv kernels
 HWIO -> OIHW, Dense (in, out) -> (out, in), BatchNorm scale/bias ->
 weight/bias and batch_stats mean/var -> running_mean/running_var.  The
 port's modules carry the flax names, so a parameter's path in the flax
-tree is its name in the state_dict.
+tree is its name in the state_dict (DenseBoxNet's `box_head` Dense
+included).
 """
 from __future__ import annotations
 

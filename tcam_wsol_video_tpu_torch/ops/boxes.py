@@ -1,10 +1,12 @@
 """Box helpers (port of ops/boxes.py): resize_bbox, mask_to_bbox, the
-IoU matrix and the per-threshold single-box sweeps of the approximate
+IoU matrix (iou_matrix_np on the host, for C_BOX's predicted boxes) and
+the per-threshold single-box sweeps of the approximate
 on-device eval counters (metrics/device_eval.py)."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -17,6 +19,25 @@ def resize_bbox(box, image_size, resize_size) -> Tuple[int, int, int, int]:
     h_ratio = resize_size[1] / float(image_size[1])
     return (int(x0 * w_ratio), int(y0 * h_ratio),
             int(x1 * w_ratio), int(y1 * h_ratio))
+
+
+def iou_matrix_np(box_a: np.ndarray, box_b: np.ndarray) -> np.ndarray:
+    """(A, 4) x (B, 4) boxes (x0, y0, x1, y1) -> (A, B) IoU with the
+    protocol's +1 pixel-area convention; a pair whose union is not
+    positive scores 0."""
+    a = np.asarray(box_a, np.float64)[:, None, :]
+    b = np.asarray(box_b, np.float64)[None, :, :]
+    inter = (np.maximum(0, np.minimum(a[..., 2], b[..., 2])
+                        - np.maximum(a[..., 0], b[..., 0]) + 1)
+             * np.maximum(0, np.minimum(a[..., 3], b[..., 3])
+                          - np.maximum(a[..., 1], b[..., 1]) + 1))
+    area_a = (a[..., 2] - a[..., 0] + 1) * (a[..., 3] - a[..., 1] + 1)
+    area_b = (b[..., 2] - b[..., 0] + 1) * (b[..., 3] - b[..., 1] + 1)
+    denom = area_a + area_b - inter
+    bad = denom <= 0
+    iou = inter / np.where(bad, 1.0, denom)
+    iou[bad] = 0.0
+    return iou
 
 
 def mask_to_bbox(mask: torch.Tensor) -> torch.Tensor:

@@ -115,10 +115,27 @@ def test_yaml_values_keep_their_yaml_type(tmp_path):
     assert got.lr == "0.5" and got.sl_tc_min_p == 0.3
 
 
-def test_yaml_keys_of_unported_modules_are_refused():
+def test_yaml_keys_of_unported_modules_are_refused(tmp_path):
+    # C_BOX's yaml is ported now; the mesh keys (multi-GPU) are not
+    path = tmp_path / "mesh.yaml"
+    path.write_text("task: TCAM\narch: UnetTCAM\nmesh_dp: 2\n")
     with pytest.raises(ValueError, match="not ported"):
-        parse_args(["--config",
-                    os.path.join(ROOT, "config_yaml", "ytov1_cbox.yaml")])
+        parse_args(["--config", str(path)])
+
+
+def test_cbox_yaml_parses_as_jax():
+    """config_yaml/ytov1_cbox.yaml, alone and under flags, key by key and
+    type as JAX's parse_args reads it."""
+    yaml = os.path.join(ROOT, "config_yaml", "ytov1_cbox.yaml")
+    got = _assert_parse_equal(["--config", yaml])
+    assert (got.task, got.arch, got.cb_seed_n, got.cb_cl_score_blur_ksize,
+            got.cb_pp_box_min_size_type) == ("C_BOX", "DenseBoxNet", 10, 65,
+                                             "size_data")
+    got = _assert_parse_equal(["--config", yaml, "--cb_seed_n", "3",
+                               "--freeze_encoder", "true",
+                               "--cb_cl_score_blur_sigma", "30"])
+    assert got.cb_seed_n == 3 and got.freeze_encoder
+    assert got.cb_cl_score_blur_sigma == 30.0
 
 
 REFERENCE_ARGV = [
@@ -176,7 +193,8 @@ def test_production_script_and_f_cl_flags_parse_as_jax():
 
 @pytest.mark.parametrize("bad,err", [
     (dict(task="F_CL", arch="UnetTCAM"), ValueError),
-    (dict(task="C_BOX", arch="DenseBoxNet"), NotImplementedError),
+    # C_BOX is ported: its own arch check (JAX hparams.finalize) refuses
+    (dict(task="C_BOX", arch="UnetTCAM"), ValueError),
     (dict(sl_block=2), ValueError), (dict(sl_tc_block=3), ValueError)],
     ids=["f_cl_arch", "c_box", "sl_block", "sl_tc_block"])
 def test_finalize_checks_of_this_slice(bad, err):
@@ -193,7 +211,7 @@ def test_the_ported_keys():
               "im_rec_elb", "img_range", "sl_fc", "sl_block", "sl_tc_block",
               "crf_fc", "crf_lambda", "entropy_fc", "max_sizepos_fc_end_ep"):
         assert _same(getattr(TCAMConfig(), k), ref[k]), k
-    assert len(KEYS) == 162 and set(KEYS) <= set(ref)
+    assert len(KEYS) == 204 and set(KEYS) <= set(ref)
 
 
 THROUGHPUT = {"train_dispatch_chunk": "4", "eval_transfer": "uint16",

@@ -275,6 +275,127 @@ def test_bf16_tcam_step_on_the_card(card, monkeypatch):
                if p.grad is not None)
 
 
+def _cbox_args(**kw):
+    from tcam_wsol_video_tpu_torch.core.config import TCAMConfig
+    return TCAMConfig(task="C_BOX", arch="DenseBoxNet", crop_size=64,
+                      batch_size=2, cb_area_box=True, cb_cl_score=True,
+                      cb_seed=True, cb_pp_box=True, cb_seed_n=4,
+                      cb_cl_score_blur_ksize=17, cb_cl_score_blur_sigma=8.0,
+                      **kw)
+
+
+def _cbox_models(card=None):
+    """A small DenseBoxNet whose box head predicts (6, 8, 50, 44) on
+    average, and a frozen STDClassifier, from seed 0."""
+    from tcam_wsol_video_tpu_torch.models.classifier import (DenseBoxNet,
+                                                             STDClassifier)
+    from tcam_wsol_video_tpu_torch.models.resnet import ResNetWSOL
+    torch.manual_seed(0)
+    box = DenseBoxNet(ResNetWSOL(layers=(1, 1, 1, 1)))
+    with torch.no_grad():
+        box.box_head.weight.mul_(0.1)
+        box.box_head.bias.copy_(torch.tensor([6.0, 8.0, 50.0, 44.0]))
+    cls = STDClassifier(ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10)
+    cls.requires_grad_(False)
+    if card is not None:
+        box, cls = box.to(card), cls.to(card)
+    return box, cls
+
+
+def test_bf16_cbox_step_on_the_card(card, monkeypatch):
+    """One C_BOX step at the default compute dtype (bfloat16) on the card:
+    both models hand cuDNN bf16 convolutions, no CRF kernel or plain
+    version runs, the metrics are finite, the frozen classifier takes no
+    gradient and the box model's parameters and gradients stay fp32."""
+    from tcam_wsol_video_tpu_torch.cams.seeding import \
+        cbox_seeder_cfg_from_args
+    from tcam_wsol_video_tpu_torch.engine.cbox_steps import \
+        make_cbox_train_step
+    from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
+    from tcam_wsol_video_tpu_torch.engine.state import TrainState
+    from tcam_wsol_video_tpu_torch.losses.build import get_loss
+    from tcam_wsol_video_tpu_torch.models import resnet
+    args = _cbox_args()
+    assert args.compute_dtype == "bfloat16"
+    model, cls = _cbox_models(card)
+    state = TrainState(model, build_optimizer(args, model, args.lr))
+    master = get_loss(args)
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {"image": torch.randn((2, 64, 64, 3), generator=g, device=card),
+             "label": torch.tensor([1, 4], device=card),
+             "std_cam": torch.rand((2, 64, 64), generator=g, device=card)}
+    seen = set()
+    conv = resnet.Conv2d._conv_forward
+
+    def spy(self, x, weight, bias):
+        seen.add((x.dtype, weight.dtype, weight.device.type))
+        return conv(self, x, weight, bias)
+
+    monkeypatch.setattr(resnet.Conv2d, "_conv_forward", spy)
+    counters = (bilateral.counts, landmarks.knm_counts, landmarks.rhs_counts,
+                landmarks.out_counts)
+    for c in counters:
+        c.reset()
+    met = make_cbox_train_step(
+        master, args, cbox_seeder_cfg_from_args(args), cls,
+        size_priors_min_s=[0.05] * 10)(
+        state, batch, master.switches(0),
+        generator=torch.Generator(device=card).manual_seed(1))
+    torch.cuda.synchronize()
+    assert seen == {(torch.bfloat16, torch.bfloat16, "cuda")}
+    assert all(c.kernel == 0 and c.plain == 0 for c in counters)
+    assert set(met) >= {"area_box", "cl_scoring", "seed_cbox", "box_bounds"}
+    assert all(bool(torch.isfinite(v).all()) for v in met.values())
+    assert int(met["valid_boxes"]) == 2
+    assert all(p.grad is None for p in cls.parameters())
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters())
+
+
+def test_cbox_eval_step_on_the_card_matches_cpu(card):
+    """The C_BOX eval step at fp32 on the card (TF32 convolutions) against
+    the CPU: boxes within TF32's bound of the image size, the same
+    validity, logits within TF32's bound."""
+    import copy
+    from tcam_wsol_video_tpu_torch.engine.cbox_steps import \
+        make_cbox_eval_step
+    args = _cbox_args(compute_dtype="float32")
+    model, cls = _cbox_models()
+    x = torch.randn(4, 64, 64, 3)
+    boxes, valid, logits = make_cbox_eval_step(model, cls, args)(x)
+    boxes_c, valid_c, logits_c = make_cbox_eval_step(
+        copy.deepcopy(model).to(card), copy.deepcopy(cls).to(card),
+        args)(x.to(card))
+    assert (boxes_c.cpu() - boxes).abs().max() <= TF32_RTOL * 64
+    assert torch.equal(valid_c.cpu(), valid) and int(valid.sum()) == 4
+    assert (logits_c.cpu() - logits).abs().max() <= \
+        TF32_RTOL * logits.abs().max()
+
+
+def test_cbox_seeder_on_the_card_matches_cpu(card):
+    """cbox_seeder on the card from the CPU's noise: the same masks
+    (STOtsu's integer histograms, the sort, max-pool morphology)."""
+    from tcam_wsol_video_tpu_torch.cams.seeding import (CBoxSeederCfg,
+                                                        cbox_seeder,
+                                                        gumbel_noise)
+    g = torch.Generator().manual_seed(3)
+    yy, xx = torch.meshgrid(torch.arange(56.0), torch.arange(56.0),
+                            indexing="ij")
+    centres = 14 + 28 * torch.rand((6, 2), generator=g)
+    cams = torch.exp(-((yy - centres[:, :1, None]) ** 2
+                       + (xx - centres[:, 1:, None]) ** 2) / 200.0)
+    cams = 0.9 * cams + 0.1 * torch.rand((6, 56, 56), generator=g)
+    cams[-1] = 0.5
+    gumbel = gumbel_noise((6, 2, 56 * 56), g, "cpu")
+    z = 0.3 + 0.1 * torch.rand((6,), generator=g)
+    cfg = CBoxSeederCfg(n=10)
+    want = cbox_seeder(cams, cfg, gumbel=gumbel, z=z)
+    got = cbox_seeder(cams.to(card), cfg, gumbel=gumbel.to(card),
+                      z=z.to(card))
+    assert torch.equal(got.cpu(), want)
+    assert (want == 1).any() and (want == 0).any()
+
+
 def test_card_decode_cache_and_u8_route(card, tmp_path):
     """decode_resize_u8 on the card: fastloader's resize rounded half up,
     against the same arithmetic on the CPU from the card's decoded frames;
