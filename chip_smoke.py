@@ -1,6 +1,7 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --mesh-only    # path D, then path N alone
 
 Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from the sources in this checkout (one nvcc
@@ -131,10 +132,24 @@ Phases (any failure raises and the script exits non-zero):
      and held against the same eval step on the CPU within 1e-3 (the
      first 8 images; the ScoreCAM family on the same frames at 32 px),
      the noise of SmoothGradCAM++ and SSCAM drawn once and injected;
- 19. the landmark filter's solve at path B's shapes: the lockstep solve
+ 19. path N (on path D's set and store, after the CAM-method phase),
+     several ranks: (a) cli/train.main under torch.distributed.run
+     --nproc_per_node 1 (a world of 1 over NCCL) with path D's flags for
+     1 epoch, its first-step loss and val counters before training
+     against path D's, then cli/evaluate.main the same way; (b) 2 ranks
+     (NCCL on two cards, or gloo on CUDA tensors when both share the one
+     card) against one rank at path A's fp32 step (TF32 off, cuDNN
+     deterministic, 16 frames a rank against 32, the seeder's noise each
+     rank's rows of one global draw) for 2 steps: the losses, every
+     parameter and the BN statistics within the bounds written in PERF.md
+     before the run, the ranks' states bit-equal, kernel 1 once a step on
+     each rank; each rank's step ms, gradient all-reduce ms and peak;
+     (c) cli/evaluate.main on the 2 ranks over (a)'s snapshot: counters
+     bit-equal to (a)'s world-1 evaluation;
+ 20. the landmark filter's solve at path B's shapes: the lockstep solve
      against cholesky_ex, both timed, and the fused route (lockstep) at
      batch 32 against its plain version;
- 20. time each kernel (and the exact filter's per-call spread and
+ 21. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
@@ -572,11 +587,12 @@ class CrfTimer:
 
 
 def build_main_path(seed: int, production: bool = False,
-                    dtype: str = "bfloat16", encoder: str = "resnet50"):
+                    dtype: str = "bfloat16", encoder: str = "resnet50",
+                    mesh=None):
     """The recipe's model (on `encoder`), optimizer, steps, batch and
     seeder generator (production: the production stage-2 recipe, landmark
-    CRF) at compute_dtype `dtype`; two builds from one seed start from the
-    same state."""
+    CRF) at compute_dtype `dtype`, the train step a rank's of `mesh` when
+    given; two builds from one seed start from the same state."""
     from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
     from tcam_wsol_video_tpu_torch.core.config import (
         stage2_tcam_production, stage2_tcam_recipe)
@@ -598,7 +614,8 @@ def build_main_path(seed: int, production: bool = False,
     opt = build_optimizer(args, model, args.lr)
     state = TrainState(model, opt, elb_t=args.elb_init_t)
     master = get_loss_tcam(args)
-    train_step = make_train_step(master, args, seeder_cfg_from_args(args))
+    train_step = make_train_step(master, args, seeder_cfg_from_args(args),
+                                 mesh=mesh)
     eval_step = make_cam_eval_step(model, args)
     host = synthetic_batch(kc.numpy_rng("chip_smoke", "batch"), args)
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
@@ -2766,6 +2783,384 @@ def phase_cam_methods(seed: int, data: dict, s1_outd: str) -> dict:
     return {"snapshot_step": step, "methods": rows}
 
 
+# ------------------------------------------------- path N: several ranks
+# two ranks against one at path A's fp32 step (TF32 off, cuDNN
+# deterministic, 16 frames a rank against 32), 2 steps: the loss terms
+# (relative), every parameter's update relative to the one-rank update's
+# largest entry of its tensor (plus 4 ulp of the parameter) and the BN
+# running statistics relative to their largest entry.  The bounds of
+# PR 13's first run (1e-4, 1e-3, 1e-4) lay under the card's own fp32
+# noise on this random-weight model: one rank against itself with another
+# cuDNN algorithm choice (benchmark mode) differed by 9.2e-3 in the loss,
+# 9.9e-2 in the updates and 7.4e-3 in the BN statistics (PERF.md, PR 13);
+# these were written there before the next run.  Each run measures that
+# floor again beside the gaps (mesh_floor).
+MESH_LOSS_RTOL = 1e-3
+MESH_DELTA_RTOL = 1e-1
+MESH_BN_RTOL = 1e-2
+MESH_STEPS = 2
+MESH_WORLD = 2
+# a rank that has not finished by then fails the phase (the group killed)
+MESH_DEADLINE_S = 600
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def exact_fp32(benchmark: bool = False):
+    """TF32 off and cuDNN deterministic within the block (benchmark: cuDNN
+    picks its algorithms by timing them instead, another valid choice)."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic, b.cudnn.benchmark = not benchmark, benchmark
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark) = saved
+
+
+def mesh_steps(seed: int, mesh=None, benchmark: bool = False) -> dict:
+    """Path A's recipe at fp32 from the seed's weights: MESH_STEPS steps on
+    the rank's rows of its 32-frame batch (all of them without a mesh), the
+    seeder's noise drawn from the seeded generator (each rank its rows of
+    the global draw).  Returns the global losses, step ms, the gradient
+    all-reduce ms, kernel 1's launches, the peak memory and the state."""
+    from tcam_wsol_video_tpu_torch.core.clock import SpanClock
+    from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
+
+    with exact_fp32(benchmark):
+        (args, model, opt, state, train_step, _, batch, gen,
+         switches) = build_main_path(seed, dtype="float32", mesh=mesh)
+        init = ({k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+                if mesh is None else None)
+        b = args.batch_size
+        lo, n = 0, b
+        if mesh is not None:
+            pmesh.broadcast_state(model, mesh)
+            n = b // mesh.dp
+            lo = mesh.d * n
+            mesh.clock = SpanClock(torch.device("cuda"))
+        local = {k: v[lo:lo + n] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            met = train_step(state, local, switches, seed_weighted=True,
+                             generator=gen)
+            torch.cuda.synchronize()
+            steps.append({**{k: float(v) for k, v in met.items()},
+                          "step_ms": (time.perf_counter() - t0) * 1e3})
+        launches = read_counts()
+        comm = mesh.clock.millis() if mesh is not None else []
+        if mesh is not None:
+            mesh.clock = None
+    return {"frames": n, "steps": steps, "allreduce_ms": comm,
+            "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()},
+            "init": init}
+
+
+def _mesh_worker(rank: int, world: int, port: int, backend: str,
+                 eval_argv: list, out_dir: str, q) -> None:
+    """A rank of path N(b) and (c), in a spawned process: the group over
+    `backend` (asked for explicitly), the two steps, then cli/evaluate.main
+    on the rank's shard."""
+    import hashlib
+    import traceback
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        from tcam_wsol_video_tpu_torch.cli import evaluate as cli_evaluate
+        from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
+        device = pmesh.maybe_init_distributed("cuda", backend=backend,
+                                              timeout_s=300)
+        mesh = pmesh.make_mesh(world, 1)
+        run = mesh_steps(SEED, mesh)
+        state = run.pop("state")
+        run.pop("init")
+        run["state_sha"] = {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                            for k, v in state.items()}
+        if rank == 0:
+            torch.save(state, os.path.join(out_dir, "rank0_state.pt"))
+        del state
+        torch.cuda.empty_cache()
+        if eval_argv is not None:
+            res = cli_evaluate.main(eval_argv + ["--mesh_dp", str(world)])
+            run["evaluate"] = {k: v for k, v in res.items()
+                               if isinstance(v, (int, float))}
+        run["device"] = str(device)
+        run["backend"] = mesh.backend
+        pmesh.shutdown()
+        q.put((rank, "ok", run))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+        raise SystemExit(1)
+
+
+def _torchrun(module: str, argv: list, nproc: int, timeout: int):
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={nproc}", "--master_addr=127.0.0.1",
+           f"--master_port={_free_port()}", "-m", module, *argv]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    if out.returncode != 0:
+        print(out.stderr[-6000:], file=sys.stderr, flush=True)
+    check(out.returncode == 0, f"{module} under torch.distributed.run "
+          f"--nproc_per_node {nproc} exited {out.returncode}")
+    return out
+
+
+def _counters(r: dict) -> dict:
+    return {k: v for k, v in r.items()
+            if k == "n_images" or k in ("classification", "localization")
+            or k.startswith(("maxboxacc_", "top1_loc_", "top5_loc_"))}
+
+
+def mesh_rank_runs(eval_argv) -> dict:
+    """MESH_WORLD spawned ranks of _mesh_worker (one card each over NCCL,
+    or all on the one card over gloo, asked for explicitly); eval_argv:
+    cli/evaluate.main's flags (None: no evaluation).  A rank that fails or
+    has not finished by MESH_DEADLINE_S fails the phase."""
+    import multiprocessing
+    import queue as queue_mod
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MESH_WORLD else "gloo"
+    out_dir = os.path.join(ROOT, "build", "mesh_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_worker, args=(
+        r, MESH_WORLD, port, backend, eval_argv, out_dir, q))
+        for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    runs, errors = {}, []
+    try:
+        while len(runs) + len(errors) < MESH_WORLD:
+            left = MESH_DEADLINE_S - (time.perf_counter() - t0)
+            try:
+                rank, status, payload = q.get(timeout=max(1.0, left))
+            except queue_mod.Empty:
+                errors.append(f"ranks not done in {MESH_DEADLINE_S} s")
+                break
+            if status == "ok":
+                runs[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    check(not errors, "path N(b): " + "\n".join(errors))
+    check(all(p.exitcode == 0 for p in procs),
+          f"path N: rank exit codes {[p.exitcode for p in procs]}")
+    state = torch.load(os.path.join(out_dir, "rank0_state.pt"),
+                       weights_only=True)
+    shutil.rmtree(out_dir)
+    return {"ranks": [runs[r] for r in range(MESH_WORLD)], "state": state,
+            "cards": n_cards, "seconds": time.perf_counter() - t0}
+
+
+def mesh_gaps(one: dict, two: list, state: dict) -> dict:
+    """The ranks' gaps to one rank: each loss term's (relative, the counts
+    equal), each parameter's update (its largest difference over the
+    one-rank update's largest entry; `over` names those beyond
+    MESH_DELTA_RTOL plus 4 ulp of the parameter) and the BN statistics'
+    (relative to their largest entry)."""
+    loss_err = {}
+    for i in range(MESH_STEPS):
+        for k, want in one["steps"][i].items():
+            if k == "step_ms":
+                continue
+            for r in two:
+                got = r["steps"][i][k]
+                if k in ("n", "n_correct"):
+                    check(got == want, f"path N(b) step {i}: {k} {got} != "
+                          f"{want}")
+                    continue
+                err = abs(got - want) / max(abs(want), 1e-12)
+                loss_err[k] = max(loss_err.get(k, 0.0), err)
+    p0 = one["init"]
+    delta_err, worst, bn_err, over = 0.0, "", 0.0, []
+    for k, want in one["state"].items():
+        got = state[k]
+        if "running_" in k:
+            bn_err = max(bn_err, float((got - want).abs().max())
+                         / max(float(want.abs().max()), 1e-12))
+            continue
+        if not got.is_floating_point():
+            check(torch.equal(got, want), f"path N(b): {k}")
+            continue
+        old = p0[k]
+        d_want = want - old
+        scale = float(d_want.abs().max())
+        tol = (MESH_DELTA_RTOL * scale + 4 * float(
+            torch.finfo(torch.float32).eps) * float(old.abs().max()))
+        err = float(((got - old) - d_want).abs().max())
+        if scale > 0 and err / scale > delta_err:
+            delta_err, worst = err / scale, k
+        if err > tol:
+            over.append(k)
+    return {"loss_rel": loss_err, "delta_rel": delta_err, "worst": worst,
+            "bn_rel": bn_err, "over": over}
+
+
+def phase_mesh(seed: int, data: dict, path_d: dict) -> dict:
+    """Path N, several ranks (parallel/mesh.py):
+    (a) cli/train.main under torch.distributed.run --nproc_per_node 1 (a
+        world of 1 over NCCL) with path D's flags for 1 epoch: its
+        first-step loss and its val counters before training against
+        path D's (the same weights); then cli/evaluate.main the same way
+        on its best-localization snapshot;
+    (b) 2 ranks (one card each over NCCL, or both on the one card over
+        gloo, asked for explicitly: NCCL refuses two ranks on one device)
+        against one rank without a process group: path A's fp32 step, 16
+        frames a rank against 32, for 2 steps: the losses, every parameter
+        and the BN statistics within the MESH_* bounds, the two ranks'
+        states bit-equal, kernel 1 once a step on each rank; beside them
+        the card's own floor, one rank against itself under another cuDNN
+        algorithm choice;
+    (c) cli/evaluate.main on the 2 ranks over (a)'s snapshot: counters
+        bit-equal to (a)'s world-1 evaluation."""
+    root = data["root"]
+    store = os.path.join(root, "cams")
+    outd = os.path.join(root, "exps_n")
+    # (a)
+    t0 = time.perf_counter()
+    flags = path_d_flags(root, store, outd, epochs=1, exp_id="n1")
+    out = _torchrun("tcam_wsol_video_tpu_torch.cli.train", flags, 1, 900)
+    train_s = time.perf_counter() - t0
+    exp = os.path.join(outd, os.listdir(outd)[0], "n1")
+    with open(os.path.join(exp, "performances.json")) as f:
+        perf = json.load(f)
+    with open(os.path.join(exp, "log.json")) as f:
+        msgs = [json.loads(x).get("msg") for x in f]
+    check(any(str(m).startswith("mesh: dp=1 mp=1 over nccl") for m in msgs),
+          "path N(a): the world of 1 did not join over NCCL")
+    rec = perf["records"]["train"][0]
+    d_rec = path_d["train"][0]
+    first = (rec["step_losses"][0], d_rec["step_losses"][0])
+    first_rel = abs(first[0] - first[1]) / abs(first[1])
+    val = (_counters(perf["records"]["eval"][0]),
+           _counters(path_d["eval"][0]))
+    print(f"[path N(a)] world 1 over NCCL: {rec['steps']} steps, median "
+          f"step {rec['median_step_ms']:.2f} ms, gradient all-reduce "
+          f"{rec['allreduce_ms_per_step']:.3f} ms/step (none at one rank), "
+          f"first-step loss {first[0]:.6g} (path D {first[1]:.6g}, rel "
+          f"{first_rel:.2e}); val before training "
+          f"{'bit-equal to' if val[0] == val[1] else 'UNLIKE'} path D's; "
+          f"cli/train.main {train_s:.1f} s", flush=True)
+    check(first_rel <= 1e-3, "path N(a): first-step loss off path D's")
+    check(val[0] == val[1], f"path N(a): val counters {val[0]} != path D's "
+          f"{val[1]}")
+    common = common_flags(root) + [
+        "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size", "32",
+        "--exp_dir", exp]
+    t0 = time.perf_counter()
+    ev = _torchrun("tcam_wsol_video_tpu_torch.cli.evaluate", common, 1, 600)
+    eval_s = time.perf_counter() - t0
+    world1 = json.loads([ln for ln in ev.stdout.splitlines()
+                         if ln.startswith("{")][-1])
+    print(f"[path N(a)] cli/evaluate.main (world 1): {world1['n_images']} "
+          f"images, MaxBoxAcc@50 {world1['maxboxacc_50']:.2f}, "
+          f"{eval_s:.1f} s", flush=True)
+    check(world1["n_images"] == 320, "path N(a): evaluate image count")
+
+    # (b) the reference first, in this process, and the card's own fp32
+    # noise on it (another cuDNN algorithm choice); then the ranks
+    one = mesh_steps(seed)
+    other = mesh_steps(seed, benchmark=True)
+    floor = mesh_gaps(one, [other], other.pop("state"))
+    del other
+    torch.cuda.empty_cache()
+    runs = mesh_rank_runs(common)
+    two = runs["ranks"]
+    gaps = mesh_gaps(one, two, runs["state"])
+    loss_err, delta_err, bn_err = (gaps["loss_rel"], gaps["delta_rel"],
+                                   gaps["bn_rel"])
+    check(two[0]["state_sha"] == two[1]["state_sha"],
+          "path N(b): the two ranks' states differ")
+    check(not gaps["over"], "path N(b): parameter updates over "
+          f"{MESH_DELTA_RTOL} of their largest entry: {gaps['over'][:5]}")
+    for k, e in loss_err.items():
+        check(e <= MESH_LOSS_RTOL, f"path N(b): {k} rel {e:.3e} > "
+              f"{MESH_LOSS_RTOL}")
+    check(bn_err <= MESH_BN_RTOL, f"path N(b): BN statistics rel {bn_err}")
+    for r in two:
+        k = r["launches"]["bilateral_exact"]["kernel"]
+        check(k == MESH_STEPS, f"path N(b): kernel 1 launched {k} times in "
+              f"{MESH_STEPS} steps on {r['device']}")
+        check(all(c["plain"] == 0 for c in r["launches"].values()),
+              "path N(b): a plain version ran")
+    n_cards, ranks_s = runs["cards"], runs["seconds"]
+    print(f"[path N(b)] {MESH_WORLD} ranks over {two[0]['backend']} on "
+          f"{n_cards} card(s) ({', '.join(r['device'] for r in two)}), "
+          f"{two[0]['frames']} frames each, against one rank at "
+          f"{one['frames']}: loss terms rel "
+          + ", ".join(f"{k} {e:.2e}" for k, e in loss_err.items())
+          + f" (bound {MESH_LOSS_RTOL}); parameter updates "
+          f"{delta_err:.2e} of their largest entry ({gaps['worst']}; bound "
+          f"{MESH_DELTA_RTOL}); BN statistics rel {bn_err:.2e} (bound "
+          f"{MESH_BN_RTOL}); states bit-equal across ranks; the card's "
+          f"floor (1 rank, cuDNN benchmark): loss "
+          f"{max(floor['loss_rel'].values()):.2e}, updates "
+          f"{floor['delta_rel']:.2e}, BN {floor['bn_rel']:.2e}", flush=True)
+    for r in [one] + two:
+        who = "1 rank" if r is one else f"rank on {r['device']}"
+        print(f"[path N(b)] {who}: step ms " + "/".join(
+            f"{s['step_ms']:.2f}" for s in r["steps"])
+            + ", gradient all-reduce ms " + ("/".join(
+                f"{m:.2f}" for m in r["allreduce_ms"]) or "none")
+            + f", kernel 1 x{r['launches']['bilateral_exact']['kernel']}, "
+            f"peak {r['peak_mem_gib']:.2f} GiB", flush=True)
+
+    # (c)
+    got = [_counters(r["evaluate"]) for r in two]
+    want = _counters(world1)
+    print(f"[path N(c)] cli/evaluate.main on {MESH_WORLD} ranks: "
+          f"{got[0]['n_images']} images, MaxBoxAcc@50 "
+          f"{got[0]['maxboxacc_50']:.2f}; counters "
+          f"{'bit-equal to' if all(g == want for g in got) else 'UNLIKE'} "
+          f"world 1's; the ranks' phase {ranks_s:.1f} s", flush=True)
+    for g in got:
+        check(g == want, f"path N(c): {g} != world 1's {want}")
+    launches = sum(r["launches"]["bilateral_exact"]["kernel"] for r in two)
+    return {"world1": {"train": perf["records"]["train"],
+                       "first_step_rel": first_rel, "evaluate": world1,
+                       "train_s": train_s, "eval_s": eval_s},
+            "backend": two[0]["backend"], "cards": n_cards,
+            "ranks": [{k: v for k, v in r.items() if k != "state_sha"}
+                      for r in two],
+            "one_rank": {k: v for k, v in one.items()
+                         if k not in ("state", "init")},
+            "loss_rel": loss_err, "delta_rel": delta_err, "bn_rel": bn_err,
+            "worst": gaps["worst"],
+            "floor": {k: v for k, v in floor.items() if k != "over"},
+            "launches": launches, "ranks_s": ranks_s}
+
+
 # ---------------------------------------------- the landmark filter's solve
 # the lockstep solve against cholesky_ex, relative L2
 # (tests/test_torch_landmarks.py's SOLVE_RTOL)
@@ -3163,6 +3558,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one train step (torch.profiler)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="path D, then path N alone (several ranks); not "
+                    "the whole check")
     a = ap.parse_args(argv)
 
     # the port first: without the checkout around the script this fails
@@ -3201,6 +3599,17 @@ def main(argv=None) -> int:
               "build_s": {n: r["seconds"] for n, r in {**built,
                                                         **host_built}.items()},
               "ptxas": {n: r["log"] for n, r in built.items()}}
+    if a.mesh_only:
+        data = make_trainer_set(SEED)
+        result["trainer"] = phase_trainer(SEED, data)
+        result["mesh"] = phase_mesh(SEED, data, result["trainer"])
+        shutil.rmtree(data["root"])
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_mesh.json"),
+                  "w") as f:
+            json.dump(result, f, indent=1, default=str)
+        print(smi)
+        return 0
     result["checks"] = phase_kernel_checks(SEED)
     result["bit_equal"] = check_bit_equal(SEED)
     result["checks"] += phase_landmark_checks(SEED)
@@ -3233,6 +3642,7 @@ def main(argv=None) -> int:
                                             result["stage1_encoders"])
     result["cam_methods"] = phase_cam_methods(
         SEED, data, result["chain"]["stage1_outd"])
+    result["mesh"] = phase_mesh(SEED, data, result["trainer"])
     shutil.rmtree(data["root"])
     result["unet_encoders"] = phase_unet_encoders(SEED)
     result["roi"] = phase_roi(SEED)
@@ -3283,6 +3693,8 @@ def main(argv=None) -> int:
         # path M (C_BOX): no CRF, so 0
         "launches_path_m": result["cbox"]["launches"]["bilateral_exact"][
             "kernel"],
+        # path N(b): both ranks' launches (once a step on each)
+        "launches_path_n": result["mesh"]["launches"],
         "max_abs_err": max_err("bilateral_exact"),
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
@@ -3458,6 +3870,21 @@ def main(argv=None) -> int:
                       f"{r['samples']})"
                       for m, r in result["cam_methods"]["methods"].items()),
           flush=True)
+    pn = result["mesh"]
+    print(f"[summary] path N: world 1 over NCCL median step "
+          f"{pn['world1']['train'][0]['median_step_ms']:.2f} ms (first-step "
+          f"loss rel {pn['world1']['first_step_rel']:.2e} to path D's); "
+          f"{MESH_WORLD} ranks over {pn['backend']} on {pn['cards']} "
+          f"card(s): step ms " + " | ".join("/".join(
+              f"{s['step_ms']:.2f}" for s in r["steps"]) for r in pn["ranks"])
+          + ", all-reduce ms " + " | ".join("/".join(
+              f"{m:.2f}" for m in r["allreduce_ms"]) for r in pn["ranks"])
+          + ", peak " + "/".join(f"{r['peak_mem_gib']:.2f}"
+                                 for r in pn["ranks"])
+          + f" GiB; against 1 rank: loss rel "
+          f"{max(pn['loss_rel'].values()):.2e}, updates "
+          f"{pn['delta_rel']:.2e}, BN {pn['bn_rel']:.2e}; sharded eval "
+          f"bit-equal", flush=True)
     print(f"[summary] solve G=32 M=1024: lockstep {sv['lockstep_ms']:.3f} ms"
           f", cholesky_ex {sv['cholesky_ex_ms']:.3f} ms, rel "
           f"{sv['lockstep_vs_cholesky_rel']:.3e}", flush=True)

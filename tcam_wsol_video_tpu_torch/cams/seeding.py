@@ -32,6 +32,7 @@ from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.ops import morphology
 from tcam_wsol_video_tpu_torch.ops.otsu import (otsu_threshold_255,
                                                 otsu_threshold_batch)
+from tcam_wsol_video_tpu_torch.parallel.mesh import global_draw
 
 _BISECT_ITERS = 8
 _BISECT_PROBES = 7
@@ -90,9 +91,11 @@ def _gumbel_topk_argmax_rows(keys: torch.Tensor, k: int) -> torch.Tensor:
 
 def gumbel_noise(shape, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
-    """Standard Gumbel draws -log(-log(U)), U uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device)
+    """Standard Gumbel draws -log(-log(U)), U uniform in [tiny, 1).  Under
+    a mesh in use shape[0] is the rank's batch: its rows of the global
+    batch's draw (parallel/mesh.global_draw)."""
+    u = global_draw(torch.rand, shape, generator=generator,
+                    dtype=torch.float32, device=device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -303,8 +306,8 @@ def cbox_seeder(cams: torch.Tensor, cfg: CBoxSeederCfg,
     if gumbel is None:
         gumbel = gumbel_noise((b, 2, p), generator, dev)
     if z is None:
-        u = torch.rand((b,), generator=generator, dtype=torch.float32,
-                       device=dev)
+        u = global_draw(torch.rand, (b,), generator=generator,
+                        dtype=torch.float32, device=dev)
         z = cfg.bg_low_z + (cfg.bg_up_z - cfg.bg_low_z) * u
     flat = cams.reshape(b, p).float()
     q = torch.floor(flat * 255.0)

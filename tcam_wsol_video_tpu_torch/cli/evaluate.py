@@ -1,5 +1,4 @@
-"""Standalone evaluation of a trained snapshot (port of cli/evaluate.py,
-one process).
+"""Standalone evaluation of a trained snapshot (port of cli/evaluate.py).
 
     python -m tcam_wsol_video_tpu_torch.cli.evaluate --task TCAM \\
         --arch UnetTCAM --data_root <root> --metadata_root <folds> \\
@@ -20,6 +19,11 @@ as one JSON object.  The eval knobs apply (--eval_sweep, --eval_transfer,
 --eval_pipeline_depth, --eval_device_cache); --on_device_eval true gives
 the approximate device counters instead, as JAX's CLI does.  It runs on the card
 unless --device cpu is given; without CUDA it raises.
+
+Under `python -m torch.distributed.run --nproc_per_node N` each rank
+scores its shard of the split (by its dp index, --mesh_dp / --mesh_mp as
+in training) and the counters are summed over the ranks; rank 0 logs and
+prints the results.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data.pipeline import DataPipeline
 from tcam_wsol_video_tpu_torch.engine.evaluator import CamEvaluator
 from tcam_wsol_video_tpu_torch.models.factory import create_model_from_args
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -50,7 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
     args, ns = parse_args(argv, extra)
-    device = device_from(ns.device)
+    device = pmesh.maybe_init_distributed(device_from(ns.device))
+    mesh = pmesh.make_mesh(args.mesh_dp, args.mesh_mp)
     args = resolve_metadata_root(args)
     # the snapshot first: a wrong --exp_dir fails before any data work
     chpt_dir = os.path.join(ns.exp_dir, args.eval_checkpoint_type)
@@ -65,25 +71,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # --h2d_transfer uint8 this sees the float pixels that the trainer's
     # test pass sees rounded
     pipe = DataPipeline(ds, args.eval_batch_size, kc, shuffle=False,
-                        device=device)
-    model = create_model_from_args(args, device=device)
+                        device=device, num_shards=mesh.dp,
+                        shard_index=mesh.d)
+    model = pmesh.state_sharding(create_model_from_args(args, device=device),
+                                 mesh)
     ckpt.load_components(model, payload["components"])
 
-    logger = ExpLogger(ns.exp_dir)
+    logger = ExpLogger(ns.exp_dir, is_master=pmesh.is_master())
     logger.log(f"evaluating {args.eval_checkpoint_type} (step {step}) on "
                f"{ns.split}")
     classifier = (load_seeder_classifier(args, kc, device)[0]
                   if args.task == constants.C_BOX else None)
     res = CamEvaluator(model, args, ds, pipe, ns.split, fast=False,
                        generator=kc.key("eval", ns.split, device=device),
-                       classifier=classifier).run()
+                       classifier=classifier, mesh=mesh).run()
     res.pop("curves", None)
     printable = {k: v for k, v in res.items()
                  if isinstance(v, (int, float, list))}
     logger.log(printable)
-    print(json.dumps(printable))
+    if pmesh.is_master():
+        print(json.dumps(printable))
     return res
 
 
 if __name__ == "__main__":
     main()
+    pmesh.shutdown()

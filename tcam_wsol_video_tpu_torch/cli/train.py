@@ -35,6 +35,16 @@ classifier) compute in --compute_dtype (default bfloat16), validation and
 the test passes in --eval_compute_dtype (default float32); parameters,
 gradients and checkpoints stay float32.  It runs on the card unless
 --device cpu is given; without CUDA it raises.
+
+Several ranks, one process per card (NCCL; gloo under --device cpu):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m tcam_wsol_video_tpu_torch.cli.train ... [--mesh_dp -1 --mesh_mp 1]
+
+--batch_size is per rank (the global batch is batch_size x mesh_dp);
+every split is sharded by the rank's dp index, the card-resident feed is
+off (--train_device_cache_mb is taken as 0), and only rank 0 writes
+(parallel/mesh.py, engine/trainer.py).
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ from tcam_wsol_video_tpu_torch.data.pipeline import DataPipeline
 from tcam_wsol_video_tpu_torch.data.transforms import PairedTransform
 from tcam_wsol_video_tpu_torch.engine.trainer import Trainer
 from tcam_wsol_video_tpu_torch.models.factory import create_model_from_args
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
 def resolve_metadata_root(args: TCAMConfig) -> TCAMConfig:
@@ -92,13 +103,19 @@ def eval_dataset(args: TCAMConfig, kc: KeyChain, split: str, md=None
         kc, crop_size=args.crop_size)
 
 
-def build_data(args: TCAMConfig, kc: KeyChain, device):
+def build_data(args: TCAMConfig, kc: KeyChain, device,
+               mesh: Optional[pmesh.Mesh] = None):
     """Returns (args with the resolved metadata root, train pipeline,
     {split: (dataset, pipeline)} for val and test).  As in the JAX CLI,
     --h2d_transfer uint8 packs the batches of every split,
     --decode_cache_mb caches the decoded frames of every split, and
     --train_device_cache_mb puts the train split's frames and CAMs on the
-    device (the eval splits stream)."""
+    device (the eval splits stream; so does every split with several
+    ranks).  Each split is sharded by the mesh's dp index."""
+    shards = ({} if mesh is None
+              else dict(num_shards=mesh.dp, shard_index=mesh.d))
+    feed_mb = (args.train_device_cache_mb
+               if mesh is None or mesh.world == 1 else 0)
     args = resolve_metadata_root(args)
     meta_root = args.metadata_root
     data_root = os.path.join(args.data_root, args.dataset)
@@ -119,7 +136,7 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
     train_pipe = DataPipeline(
         train_ds, args.batch_size, kc, shuffle=True, compact=compact,
         decode_cache_mb=args.decode_cache_mb,
-        train_device_cache_mb=args.train_device_cache_mb, device=device)
+        train_device_cache_mb=feed_mb, device=device, **shards)
 
     eval_pipes = {}
     for split in (constants.VALIDSET, constants.TESTSET):
@@ -130,7 +147,7 @@ def build_data(args: TCAMConfig, kc: KeyChain, device):
         ds = eval_dataset(args, kc, split, md)
         eval_pipes[split] = (ds, DataPipeline(
             ds, args.eval_batch_size, kc, shuffle=False, compact=compact,
-            decode_cache_mb=args.decode_cache_mb, device=device))
+            decode_cache_mb=args.decode_cache_mb, device=device, **shards))
     return args, train_pipe, eval_pipes
 
 
@@ -192,9 +209,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     extra.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
     args, ns = parse_args(argv, extra)
-    device = device_from(ns.device)
+    device = pmesh.maybe_init_distributed(device_from(ns.device))
+    mesh = pmesh.make_mesh(args.mesh_dp, args.mesh_mp)
     kc = KeyChain(args.seed)
-    args, train_pipe, eval_pipes = build_data(args, kc, device)
+    args, train_pipe, eval_pipes = build_data(args, kc, device, mesh)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = create_model_from_args(args, device=device)
@@ -212,16 +230,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                       "the JAX package")
 
     trainer = Trainer(args, model, train_pipe, eval_pipes, keychain=kc,
-                      device=device, classifier=classifier)
+                      device=device, classifier=classifier, mesh=mesh)
     results = trainer.fit()
     trainer.logger.log({"final": {
         tag: {k: v for k, v in r.items() if isinstance(v, (int, float))}
         for tag, r in results.items()}})
-    with open(os.path.join(trainer.outd, "passed.txt"), "w") as f:
-        f.write("done\n")
+    if trainer.is_master:
+        with open(os.path.join(trainer.outd, "passed.txt"), "w") as f:
+            f.write("done\n")
     return {"test": results, "records": trainer.records,
             "outd": trainer.outd, "seeder_step": seeder_step, "args": args}
 
 
 if __name__ == "__main__":
     main()
+    pmesh.shutdown()

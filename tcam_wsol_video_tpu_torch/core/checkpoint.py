@@ -54,11 +54,16 @@ def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in sd.items()}
 
 
-def save_checkpoint(folder: str, state) -> str:
-    """state: engine.state.TrainState."""
+def save_checkpoint(folder: str, state, model_sd: Optional[dict] = None,
+                    optimizer_sd: Optional[dict] = None) -> str:
+    """state: engine.state.TrainState; model_sd / optimizer_sd: the states
+    to write in place of the model's and the optimizer's own (a sharded
+    run's, gathered by every rank before the master writes)."""
     path = os.path.join(folder, f"{state.step}_checkpoint.pt")
-    _atomic_save({"model": _cpu(state.model.state_dict()),
-                  "optimizer": state.optimizer.state_dict(),
+    _atomic_save({"model": _cpu(model_sd if model_sd is not None
+                                else state.model.state_dict()),
+                  "optimizer": (optimizer_sd if optimizer_sd is not None
+                                else state.optimizer.state_dict()),
                   "elb_t": float(state.elb_t), "step": int(state.step),
                   "epoch": int(state.epoch)}, path)
     return path
@@ -74,10 +79,11 @@ def find_last_checkpoint(folder: str) -> Tuple[Optional[int],
                             weights_only=True)
 
 
-def restore_checkpoint(state, payload: dict) -> None:
-    """Load a checkpoint payload into a TrainState in place."""
+def restore_checkpoint(state, payload: dict, load_optimizer=None) -> None:
+    """Load a checkpoint payload into a TrainState in place;
+    load_optimizer(optimizer_sd) replaces optimizer.load_state_dict."""
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    (load_optimizer or state.optimizer.load_state_dict)(payload["optimizer"])
     state.elb_t = float(payload["elb_t"])
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
@@ -105,8 +111,11 @@ def split_by_component(state_dict: Dict[str, torch.Tensor]
 
 
 def save_best_model(folder: str, step: int, model: nn.Module,
-                    extra: Optional[dict] = None) -> str:
-    payload = {"components": split_by_component(_cpu(model.state_dict())),
+                    extra: Optional[dict] = None,
+                    state_dict: Optional[dict] = None) -> str:
+    """state_dict: the model's state to write (default its own)."""
+    sd = state_dict if state_dict is not None else model.state_dict()
+    payload = {"components": split_by_component(_cpu(sd)),
                "extra": dict(extra or {}, step=int(step))}
     path = os.path.join(folder, f"{step}_best_model.pt")
     _atomic_save(payload, path)

@@ -6,8 +6,8 @@ package reads the same in the other, and `parse_args` takes the same
 command line: `--key value` flags (booleans as true/false, lists as
 [a, b]), `--config <yaml>` applied before them, and the reference's
 spellings (`--opt__*` aliases, runtime flags dropped with a warning).
-The keys of modules not ported yet (multi-GPU, the demo and visuals, the
-image datasets) are absent: a flag or a yaml key naming one is refused.
+The keys of modules not ported yet (the demo and visuals, the image
+datasets) are absent: a flag or a yaml key naming one is refused.
 The keys that JAX parses and never reads (UNREAD_KEYS) are accepted at
 their defaults only: any other value raises, so that setting one cannot
 seem to change a run.
@@ -319,6 +319,10 @@ class TCAMConfig:
     cb_scale_domain: float = 1.0
     # DenseBoxNet's encoder in eval mode and without gradient
     freeze_encoder: bool = False
+    # the process mesh (parallel/mesh.py): dp shards the batch over the
+    # ranks (-1: world // mesh_mp), mp shards the head's fc over classes
+    mesh_dp: int = -1
+    mesh_mp: int = 1
 
     def replace(self, **kw) -> "TCAMConfig":
         return dataclasses.replace(self, **kw)
@@ -551,6 +555,9 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
     if args.eval_transfer not in EVAL_TRANSFERS:
         raise ValueError(f"eval_transfer must be one of {EVAL_TRANSFERS}, "
                          f"got {args.eval_transfer!r}")
+    if args.mesh_mp < 1 or (args.mesh_dp != -1 and args.mesh_dp < 1):
+        raise ValueError(f"mesh_dp must be -1 or >= 1 and mesh_mp >= 1, got "
+                         f"{args.mesh_dp} x {args.mesh_mp}")
     if args.eval_sweep not in EVAL_SWEEPS:
         raise ValueError(f"eval_sweep must be one of {EVAL_SWEEPS}, got "
                          f"{args.eval_sweep!r}")

@@ -1,6 +1,7 @@
 """Experiment log: one line per record on stderr and in <outd>/log.txt,
 one JSON object per record in <outd>/log.json (the JAX package's
-core/logger.py backends, as an object the trainer owns)."""
+core/logger.py backends, as an object the trainer owns).  Off the master
+rank it writes nothing, as JAX's is_master gating."""
 from __future__ import annotations
 
 import datetime
@@ -11,12 +12,16 @@ from typing import Any, Dict, Union
 
 
 class ExpLogger:
-    def __init__(self, outdir: str):
+    def __init__(self, outdir: str, is_master: bool = True):
         self.outdir = outdir
-        os.makedirs(outdir, exist_ok=True)
+        self.is_master = is_master
+        if is_master:
+            os.makedirs(outdir, exist_ok=True)
 
     def log(self, data: Union[str, Dict[str, Any]], step: Any = None
             ) -> None:
+        if not self.is_master:
+            return
         ts = datetime.datetime.now().isoformat(timespec="seconds")
         if isinstance(data, str):
             line = f"[{ts}] ({step}) {data}"

@@ -19,8 +19,11 @@
 //       src: device buffer, interleaved RGB rows; out: host buffer of cap
 //       bytes; 4:2:0 chroma, baseline Huffman tables (libjpeg's defaults);
 //       returns 3, with out_len set, when the bitstream exceeds cap
-// The data buffers are host memory.  Calls are synchronous with the host
-// and must not run from two threads at once (one decoder state).
+// The data buffers are host memory.  A decode returns before its work on
+// the card ends; it waits, before it reuses the decoder state, until the
+// previous decode's work has ended (nvjpegDecode's host phase writes the
+// state's pinned buffers, which the previous decode's copies read).  Calls
+// must not run from two threads at once (one decoder state).
 //
 // Build: nvcc -shared -Xcompiler -fPIC nvjpeg_codec.cu -lnvjpeg
 
@@ -36,6 +39,9 @@ struct Codec {
   nvjpegJpegState_t dec = nullptr;
   nvjpegEncoderState_t enc = nullptr;
   nvjpegEncoderParams_t params = nullptr;
+  // recorded after each decode; the next decode waits for it
+  cudaEvent_t decoded = nullptr;
+  bool pending = false;
 };
 
 Codec g_codec;
@@ -94,14 +100,27 @@ int nvj_decode_rgbi(const unsigned char* data, size_t len, void* out,
                     int pitch, void* stream) {
   int rc = init_decoder();
   if (rc) return rc;
+  if (g_codec.decoded == nullptr) {
+    rc = cuda_status(cudaEventCreateWithFlags(&g_codec.decoded,
+                                              cudaEventDisableTiming));
+    if (rc) return rc;
+  }
+  if (g_codec.pending) {
+    rc = cuda_status(cudaEventSynchronize(g_codec.decoded));
+    if (rc) return rc;
+    g_codec.pending = false;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   nvjpegImage_t img;
   std::memset(&img, 0, sizeof(img));
   img.channel[0] = static_cast<unsigned char*>(out);
   img.pitch[0] = static_cast<size_t>(pitch);
   rc = status(nvjpegDecode(g_codec.handle, g_codec.dec, data, len,
-                           NVJPEG_OUTPUT_RGBI, &img,
-                           static_cast<cudaStream_t>(stream)));
+                           NVJPEG_OUTPUT_RGBI, &img, s));
   if (rc) return rc;
+  rc = cuda_status(cudaEventRecord(g_codec.decoded, s));
+  if (rc) return rc;
+  g_codec.pending = true;
   return cuda_status(cudaGetLastError());
 }
 

@@ -44,6 +44,7 @@ from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.transforms import crop_flip, to_device
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_skimage255
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
 def make_assemble(c: int, r: int, roi_method: str, p_min_area: float,
@@ -95,15 +96,18 @@ def make_assemble(c: int, r: int, roi_method: str, p_min_area: float,
 class DeviceTrainFeed:
     """An epoch iterator of train batches assembled from pools on the
     pipeline's device.  Built by DataPipeline(train_device_cache_mb=...);
-    `enabled` is False, and the pipeline streams, for an eval split or
-    when the frames pool would exceed the budget."""
+    `enabled` is False, and the pipeline streams, for an eval split, in a
+    run of several processes, or when the frames pool would exceed the
+    budget."""
 
     def __init__(self, pipeline, budget_mb: int):
         self.pipe = pipeline
         self.ds = ds = pipeline.ds
         self.device = pipeline.device
         self.enabled = False
-        if not ds.transform.train:
+        # eval splits stream; so does every rank of a multi-process run
+        # (JAX's feed disables itself when process_count > 1)
+        if not ds.transform.train or pmesh.world_size() > 1:
             return
         # the frame universe: every frame a sampler can touch
         if ds.mode == constants.DS_SHOTS:

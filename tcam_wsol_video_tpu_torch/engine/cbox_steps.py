@@ -44,6 +44,8 @@ from tcam_wsol_video_tpu_torch.ops.box_stats import (box_stats,
                                                      compose_bg_image,
                                                      compose_fg_image,
                                                      gaussian_blur)
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
+from tcam_wsol_video_tpu_torch.parallel.mesh import global_draw
 
 Tensor = torch.Tensor
 
@@ -65,7 +67,8 @@ def init_boxes(normal: Tensor, h: int, w: int, minsz: Tensor,
 def make_cbox_train_step(master_loss: MasterLoss, args,
                          seeder_cfg: Optional[CBoxSeederCfg],
                          classifier,
-                         size_priors_min_s: Optional[np.ndarray] = None):
+                         size_priors_min_s: Optional[np.ndarray] = None,
+                         mesh: Optional[pmesh.Mesh] = None):
     """Returns train_step(state, batch, switches, seed_weighted=False,
     generator=None, noise=None, student=None, dropout_generator=None) ->
     metrics dict; state is updated in place.  The signature is
@@ -74,7 +77,8 @@ def make_cbox_train_step(master_loss: MasterLoss, args,
     batch: image (B, H, W, 3) normalized (or a compact batch),
     label (B,), std_cam (B, H, W) when cb_seed, optional valid (B,).
     size_priors_min_s (num_classes,): the per-class minimum area share,
-    read under cb_pp_box_min_size_type == size_data."""
+    read under cb_pp_box_min_size_type == size_data.  mesh: as
+    engine/steps.make_train_step's."""
     if args.cb_seed and seeder_cfg is None:
         raise ValueError("cb_seed needs a seeder config")
     h = w = args.crop_size
@@ -113,7 +117,7 @@ def make_cbox_train_step(master_loss: MasterLoss, args,
                 model(images, dtype)["box"], h, w, scale, eval_mode=True)
             normal = noise.get("normal")
             if normal is None:
-                normal = torch.randn((n,), generator=generator,
+                normal = global_draw(torch.randn, (n,), generator=generator,
                                      dtype=torch.float32, device=dev)
             rx, ry = init_boxes(normal, h, w, minsz, args.cb_init_box_size,
                                 args.cb_init_box_var)
@@ -147,10 +151,16 @@ def make_cbox_train_step(master_loss: MasterLoss, args,
             valid=valid[:, None], area=area[:, None], m_fg=m_fg, m_bg=m_bg,
             logits_fg=logits_fg, logits_bg=logits_bg,
             logits_clean=logits_clean, pre_x_hat=pre_x, pre_y_hat=pre_y)
-        total, holder = master_loss.compute(inputs, state.elb_t, switches)
+        if mesh is not None and mesh.dp_group is not None:
+            total, holder = master_loss.compute_global(
+                inputs, state.elb_t, switches, mesh.dp_group)
+        else:
+            total, holder = master_loss.compute(inputs, state.elb_t,
+                                                switches)
 
         opt.zero_grad(set_to_none=False)
         total.backward()
+        pmesh.sync_grads(model, mesh)
         opt.step()
         state.step += 1
 
@@ -160,12 +170,12 @@ def make_cbox_train_step(master_loss: MasterLoss, args,
                 bvalid = torch.ones(n, dtype=torch.bool, device=dev)
             pred = logits_fg.argmax(-1)
             n_correct = ((pred == labels) & bvalid).sum()
-        return {"loss": total.detach(), "n_correct": n_correct,
-                "n": bvalid.sum(),
-                "valid_boxes": (valid * bvalid).sum(),
-                **{k: v.detach() for k, v in holder.items()}}
+        return pmesh.reduce_metrics(
+            {"loss": total.detach(), "n_correct": n_correct,
+             "n": bvalid.sum(), "valid_boxes": (valid * bvalid).sum(),
+             **{k: v.detach() for k, v in holder.items()}}, mesh)
 
-    return train_step
+    return pmesh.within(mesh, train_step)
 
 
 def make_cbox_eval_step(model, classifier, args):

@@ -29,6 +29,13 @@ The knobs, with JAX's defaults and meaning:
 - on_device (on_device_eval): the approximate covering-box counters of
   metrics/device_eval, summed on the device, for model selection only.
 
+Several ranks (a mesh, parallel/mesh.py): each rank scores its
+shard of the split (the shards' tail duplicates are invalid), then the
+counters the results read (the classification counts, the box
+counters or the device counters) are summed over the dp group in one
+all-reduce, on the card under NCCL, before the curves: every rank gets
+the split's results, each image counted once (JAX :557-570).
+
 C_BOX scores the predicted box of each image (engine/cbox_steps.py's eval
 step with the frozen classifier) against its GT boxes, an invalid box a
 miss at every tau: one batch at a time, without the knobs above, as JAX
@@ -54,6 +61,7 @@ from tcam_wsol_video_tpu_torch.engine.steps import (dequantize_cams_np,
 from tcam_wsol_video_tpu_torch.metrics import (device_eval, device_sweep,
                                                native_sweep)
 from tcam_wsol_video_tpu_torch.metrics.wsol import BoxEvaluator
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -80,12 +88,15 @@ class CamEvaluator:
     def __init__(self, model, args, dataset, pipeline, split: str,
                  fast: bool = False, max_gt_boxes: int = 8,
                  generator: Optional[torch.Generator] = None,
-                 on_device: Optional[bool] = None, classifier=None):
+                 on_device: Optional[bool] = None, classifier=None,
+                 mesh: Optional[pmesh.Mesh] = None):
         """generator: the noise of the CAM methods that draw it
         (SmoothGradCAM++, SSCAM), on the pipeline's device.  on_device:
         the approximate device counters (default args.on_device_eval).
-        classifier: C_BOX's frozen classifier (required there)."""
+        classifier: C_BOX's frozen classifier (required there).  mesh:
+        the process mesh whose dp group sums the counters."""
         self.model = model
+        self.mesh = mesh
         self.generator = generator
         self.args = args
         self.ds = dataset
@@ -242,6 +253,8 @@ class CamEvaluator:
             _DEVICE_EVAL_CACHE[self.pipe] = rec["items"]
         wall = time.perf_counter() - t_start
         forward_ms = clock.millis()
+        counts["correct"], counts["total"] = self._reduce_across_ranks(
+            evaluator, counts["correct"], counts["total"], dev)
 
         out: Dict = {}
         n_total = counts["total"]
@@ -269,6 +282,32 @@ class CamEvaluator:
                              "recorded" if rec["on"] and rec["items"] else
                              "over_budget" if cache_ok else "off")}
         return out
+
+    def _reduce_across_ranks(self, evaluator: BoxEvaluator, n_correct: int,
+                             n_total: int, dev: Optional[dict] = None):
+        """With a mesh of several data shards: the classification counts,
+        the box counters and the device counters (dev, on_device) summed
+        over the dp group in one all-reduce; returns (n_correct,
+        n_total)."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp_group is None:
+            return n_correct, n_total
+        parts = [np.asarray([n_correct, n_total], np.float64),
+                 evaluator.counters()]
+        on_dev = dev is not None and dev["counters"] is not None
+        if on_dev:
+            parts += [dev["counters"].double().cpu().numpy().ravel(),
+                      np.asarray([float(dev["count"])])]
+        flat = pmesh.psum_across(np.concatenate(parts), mesh,
+                                 device=self.pipe.device)
+        n_box = parts[1].size
+        evaluator.set_counters(flat[2:2 + n_box])
+        if on_dev:
+            c = dev["counters"]
+            dev["counters"] = torch.from_numpy(
+                flat[2 + n_box:-1].reshape(c.shape)).to(c.dtype).to(c.device)
+            dev["count"] = torch.full((), flat[-1], device=c.device)
+        return int(flat[0]), int(flat[1])
 
     def _box_results(self, evaluator: BoxEvaluator) -> Dict:
         """MaxBoxAcc, top-1 and top-5 localization at each IoU threshold,
@@ -323,6 +362,8 @@ class CamEvaluator:
                     gt_boxes[i][gt_valid[i]], int(labels[i]), preds[i])
         wall = time.perf_counter() - t_start
         forward_ms = clock.millis()
+        n_correct, n_total = self._reduce_across_ranks(evaluator, n_correct,
+                                                       n_total)
         out = self._box_results(evaluator)
         out.update(self._totals(out, n_correct, n_total))
         out["timing"] = {

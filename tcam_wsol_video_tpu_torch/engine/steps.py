@@ -30,6 +30,12 @@ in the backward (remat_forward); `loss_chunk` > 0 computes the F_CL/TCAM
 losses over groups of that many frames (MasterLoss.compute_chunked);
 `eval_transfer` uint16/uint8 packs the eval CAMs for the readback
 (dequantize_cams_np unpacks them).
+
+With a mesh of several ranks (parallel/mesh.py) the train step is the
+rank's part of JAX's global step: the losses are its shares over the
+dp group's global batch (MasterLoss.compute_global), the gradients are
+summed over the dp group before the optimizer step, and the returned
+metrics are the global batch's.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from tcam_wsol_video_tpu_torch.models.factory import DTYPES
 from tcam_wsol_video_tpu_torch.models.resnet import frozen_statistics
 from tcam_wsol_video_tpu_torch.ops.crf_inference import mean_field_refine
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
 # the tasks whose steps are here: the model gives CAMs
@@ -143,7 +150,7 @@ def remat_forward(model, images: torch.Tensor, dtype: torch.dtype,
 
 def make_train_step(master_loss: MasterLoss, args,
                     seeder_cfg: Optional[TCAMSeederCfg] = None,
-                    classifier_model=None):
+                    classifier_model=None, mesh: Optional[pmesh.Mesh] = None):
     """Returns train_step(state, batch, switches, seed_weighted,
     generator=None, gumbel=None, student=None, dropout_generator=None) ->
     metrics dict; state is updated in place (model parameters, BN
@@ -160,7 +167,8 @@ def make_train_step(master_loss: MasterLoss, args,
     of the labels (recompute_seed_cams).  `student`, the best student's
     model (the student seed source of JAX's make_train_step): its maps
     replace the batch's seeder inputs (student_seed_inputs), and no CAMs
-    are recomputed."""
+    are recomputed.  mesh (parallel/mesh.py, several ranks): the step is
+    the rank's part of the global step, run under pmesh.use(mesh)."""
     if args.task not in CAM_TASKS:
         raise ValueError(f"no {args.task} step here (C_BOX's is "
                          "engine/cbox_steps.py)")
@@ -224,7 +232,10 @@ def make_train_step(master_loss: MasterLoss, args,
                                 frm_iter=batch.get("frm_iter"),
                                 fg_size=batch.get("fg_size"),
                                 msk_bbox=batch.get("msk_bbox"))
-        if loss_chunk > 0:
+        if mesh is not None and mesh.dp_group is not None:
+            total, holder = master_loss.compute_global(
+                inputs, state.elb_t, switches, mesh.dp_group, loss_chunk)
+        elif loss_chunk > 0:
             total, holder = master_loss.compute_chunked(
                 inputs, state.elb_t, switches, loss_chunk)
         else:
@@ -233,6 +244,7 @@ def make_train_step(master_loss: MasterLoss, args,
 
         opt.zero_grad(set_to_none=False)
         total.backward()
+        pmesh.sync_grads(model, mesh)
         opt.step()
         state.step += 1
 
@@ -243,11 +255,12 @@ def make_train_step(master_loss: MasterLoss, args,
                                    device=logits.device)
             pred = logits.argmax(-1)
             n_correct = ((pred == batch["label"]) & valid).sum()
-        return {"loss": total.detach(), "n_correct": n_correct,
-                "n": valid.sum(),
-                **{k: v.detach() for k, v in holder.items()}}
+        return pmesh.reduce_metrics(
+            {"loss": total.detach(), "n_correct": n_correct,
+             "n": valid.sum(), **{k: v.detach() for k, v in holder.items()}},
+            mesh)
 
-    return train_step
+    return pmesh.within(mesh, train_step)
 
 
 def _classifier_cam(out: dict, model, images: torch.Tensor,
@@ -276,7 +289,8 @@ def _classifier_cam(out: dict, model, images: torch.Tensor,
         return model(x, dtype)["cl_logits"]
 
     if method == constants.METHOD_CAM:
-        return ex.cam_fc_weights(feats, model.classification_head.fc.weight,
+        return ex.cam_fc_weights(feats,
+                                 pmesh.fc_weight(model.classification_head),
                                  targets, bg)
     if method in ex.BUILTIN_CAM_METHODS:
         return ex.builtin_cam(out["cams_head"], targets, bg)

@@ -42,6 +42,19 @@ it off the chunked route); under cb_pp_box_min_size_type size_data the
 minimum box sizes come from the val split's GT boxes
 (data/folds.build_size_priors).  Its epoch records add the share of
 valid boxes, and its evaluations score the predicted boxes.
+
+Several ranks (torch.distributed, one process per device; JAX's
+multi-process branch): the trainer makes the (mesh_dp, mesh_mp) mesh
+(parallel/mesh.py) and hands it to the steps and the evaluator, shards
+the classification head's fc over mp, and broadcasts every parameter and
+buffer from rank 0 after the init and after a checkpoint load.  Each
+rank's pipeline yields its shard; the steps compute the rank's part of
+the global step and return the global batch's metrics, so the epoch
+totals are the global ones.  The card-resident feed is off (and with it
+the chunked route), as in JAX.  The evaluator sums its counters over the
+dp group, so model selection and the student snapshot are the same on
+every rank.  Only rank 0 writes files; snapshots and checkpoints hold the
+full head.
 """
 from __future__ import annotations
 
@@ -73,6 +86,7 @@ from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
 from tcam_wsol_video_tpu_torch.losses.build import get_loss
 from tcam_wsol_video_tpu_torch.losses.elb import update_t
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
 class PerformanceMeter:
@@ -98,9 +112,10 @@ class PerformanceMeter:
 class Trainer:
     def __init__(self, args, model, train_pipe, eval_pipes: Dict[str, tuple],
                  keychain: Optional[KeyChain] = None, device="cuda",
-                 classifier=None):
-        """eval_pipes: {split: (dataset, pipeline)}; classifier: the frozen
-        stage-1 classifier, whose CAMs seed a TCAM run without a CAM
+                 classifier=None, mesh: Optional[pmesh.Mesh] = None):
+        """eval_pipes: {split: (dataset, pipeline)}; mesh: the process mesh
+        (default make_mesh(args.mesh_dp, args.mesh_mp)); classifier: the
+        frozen stage-1 classifier, whose CAMs seed a TCAM run without a CAM
         store (the train step recomputes them, as the JAX trainer's
         _recompute_cams does), and which scores C_BOX's boxes (required
         there)."""
@@ -116,6 +131,15 @@ class Trainer:
 
         self.master_loss = get_loss(args)
         self.lr_fn = build_lr_fn(args)
+        # the mesh (JAX's :89-154 with one device a process): the head's
+        # fc takes its class slice before the optimizer sees it
+        self.mesh = mesh or pmesh.make_mesh(args.mesh_dp, args.mesh_mp)
+        self.is_master = pmesh.is_master()
+        if self.mesh.world > 1:
+            pmesh.state_sharding(model, self.mesh)
+            pmesh.broadcast_state(model, self.mesh)
+            if classifier is not None:
+                pmesh.broadcast_state(classifier, self.mesh)
         optimizer = build_optimizer(args, model, self.lr_fn(0))
         self.state = TrainState(model, optimizer, elb_t=args.elb_init_t)
         tcam = args.task == constants.TCAM
@@ -130,7 +154,7 @@ class Trainer:
                 raise ValueError("C_BOX needs the frozen classifier")
             self.train_step = make_cbox_train_step(
                 self.master_loss, args, cbox_seeder_cfg_from_args(args),
-                classifier, self._size_priors_min_s())
+                classifier, self._size_priors_min_s(), mesh=self.mesh)
         else:
             # F_CL seeds with the TCAM seeder and its sl_tc_* keys, as in
             # JAX
@@ -139,7 +163,7 @@ class Trainer:
                 None if args.task == constants.STD_CL
                 else seeder_cfg_from_args(args),
                 classifier_model=(classifier if self._recompute_cams
-                                  else None))
+                                  else None), mesh=self.mesh)
         self._needs_seeds = (args.task in (constants.F_CL, constants.TCAM)
                              and bool(args.sl_tc or args.sl_fc))
         self._chunk_runner: Optional[scan_train.ChunkedEpochRunner] = None
@@ -169,8 +193,15 @@ class Trainer:
         self.records: Dict[str, list] = {"train": [], "eval": []}
         self.outd = os.path.join(args.outd, experiment_tag(args),
                                  args.exp_id)
-        os.makedirs(self.outd, exist_ok=True)
-        self.logger = ExpLogger(self.outd)
+        if self.is_master:
+            os.makedirs(self.outd, exist_ok=True)
+        self.logger = ExpLogger(self.outd, is_master=self.is_master)
+        if self.mesh.backend:
+            self.logger.log(
+                f"mesh: dp={self.mesh.dp} mp={self.mesh.mp} over "
+                f"{self.mesh.backend}" + (
+                    "; the card-resident feed and the chunked dispatch are "
+                    "off across processes" if self.mesh.world > 1 else ""))
 
     # -------------------------------------------------------------- train
     def _size_priors_min_s(self) -> Optional[np.ndarray]:
@@ -186,7 +217,13 @@ class Trainer:
                                  self.args.num_classes)["min_s"]
 
     def _save_checkpoint(self) -> None:
-        ckpt.save_checkpoint(self.outd, self.state)
+        # every rank gathers the full head (a collective); rank 0 writes
+        model_sd = self.model.state_dict()
+        opt_sd = pmesh.full_optimizer_state(self.state.optimizer,
+                                            self.model)
+        if not self.is_master:
+            return
+        ckpt.save_checkpoint(self.outd, self.state, model_sd, opt_sd)
         ckpt.keep_last_n_checkpoints(self.outd,
                                      self.args.keep_last_n_checkpoints)
         self.save_meters()
@@ -229,6 +266,7 @@ class Trainer:
         chunked = scan_train.engages(args, feed, use_student,
                                      self._recompute_cams)
         t_epoch = time.perf_counter()
+        self.mesh.clock = SpanClock(self.device)
         if chunked:
             run = self._run_chunked_epoch(epoch, feed, switches,
                                           seed_weighted)
@@ -236,6 +274,8 @@ class Trainer:
             run = self._run_per_step_epoch(epoch, switches, seed_weighted,
                                            student)
         wall_ms = (time.perf_counter() - t_epoch) * 1e3
+        comm_ms = self.mesh.clock.millis()
+        self.mesh.clock = None
         zero = torch.zeros((), device=self.device)
         tot_loss, n_corr, n = zero.clone(), zero.clone(), zero.clone()
         valid_boxes = zero.clone()
@@ -259,12 +299,17 @@ class Trainer:
         out = {
             "epoch": epoch,
             "loss": float(tot_loss) / max(1, i),
+            "step_losses": [float(m["loss"]) for m in run["metrics"]],
             # each loss term's mean over the epoch's steps
             "terms": {k: float(v) / max(1, i) for k, v in terms.items()},
             "classification": 100.0 * float(n_corr) / max(1.0, float(n)),
             "n": int(n), "steps": i, "wall_ms": wall_ms,
             "median_step_ms": float(np.median(step_ms)) if step_ms else 0.0,
             "step_ms": step_ms,
+            # the gradient all-reduce over the dp group (0 on one rank)
+            "allreduce_ms_per_step": float(np.mean(comm_ms))
+            if comm_ms else 0.0,
+            "mesh": self.mesh.shape,
             "data_wait_ms_per_step": run["data_wait_ms_per_step"],
             # the host's time to enqueue a step (a chunk's over its steps)
             "host_enqueue_ms_per_step": run["enqueue_ms_per_step"],
@@ -395,7 +440,8 @@ class Trainer:
             generator=self.kc.key("eval", split, epoch,
                                   device=self.device),
             on_device=on_device,
-            classifier=self.classifier if self.cbox else None).run()
+            classifier=self.classifier if self.cbox else None,
+            mesh=self.mesh).run()
         rec = {"split": split, "epoch": epoch, "snapshot": snapshot,
                **{k: v for k, v in res.items()
                   if isinstance(v, (int, float))}, **res["timing"]}
@@ -407,10 +453,11 @@ class Trainer:
                   value: float) -> dict:
         snap = {k: v.detach().clone()
                 for k, v in self.model.state_dict().items()}
-        ckpt.save_best_model(
-            os.path.join(self.outd, tag), self.state.step, self.model,
-            extra={"epoch": epoch, "elb_t": self.state.elb_t,
-                   metric: value})
+        if self.is_master:
+            ckpt.save_best_model(
+                os.path.join(self.outd, tag), self.state.step, self.model,
+                extra={"epoch": epoch, "elb_t": self.state.elb_t,
+                       metric: value}, state_dict=snap)
         return snap
 
     def model_selection(self, epoch: int, val_res: Dict) -> None:
@@ -432,6 +479,8 @@ class Trainer:
         return os.path.join(self.outd, "meters.json")
 
     def save_meters(self) -> None:
+        if not self.is_master:
+            return
         payload = {k: {"history": m.history, "best_value": m.best_value,
                        "best_epoch": m.best_epoch}
                    for k, m in self.meters.items()}
@@ -455,7 +504,11 @@ class Trainer:
         step, payload = ckpt.find_last_checkpoint(self.outd)
         if payload is None:
             return 0
-        ckpt.restore_checkpoint(self.state, payload)
+        ckpt.restore_checkpoint(
+            self.state, payload,
+            lambda sd: pmesh.load_optimizer_state(self.state.optimizer,
+                                                  self.model, sd))
+        pmesh.broadcast_state(self.model, self.mesh)
         self.load_meters()
         for tag, attr in ((constants.BEST_LOC, "best_loc_state"),
                           (constants.BEST_CL, "best_cl_state")):
@@ -495,7 +548,9 @@ class Trainer:
         return results
 
     def dump_performances(self, results: Dict) -> None:
-        """Meters, per-epoch records and the final test results."""
+        """Meters, per-epoch records and the final test results (rank 0)."""
+        if not self.is_master:
+            return
         payload = {
             "meters": {k: {"history": m.history, "best": m.best_value,
                            "best_epoch": m.best_epoch}

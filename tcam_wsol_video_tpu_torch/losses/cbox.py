@@ -24,7 +24,7 @@ import torch
 
 from tcam_wsol_video_tpu_torch.losses.core import (ElementaryLoss,
                                                    LossInputs, MasterLoss)
-from tcam_wsol_video_tpu_torch.losses.elb import elb_masked
+from tcam_wsol_video_tpu_torch.losses.elb import elb_masked_sum_count
 
 Tensor = torch.Tensor
 
@@ -49,8 +49,25 @@ class CBoxInputs(LossInputs):
     area_normed: bool = False
 
 
-class AreaBox(ElementaryLoss):
+class _MaskedMean(ElementaryLoss):
+    """A loss lambda num / max(den, 1) whose denominator counts the valid
+    entries of the batch (compute_numden gives both, so that the ranks'
+    shards sum to the global batch's)."""
+
+    def sum_count(self, inputs: CBoxInputs, t: float):
+        raise NotImplementedError
+
     def compute(self, inputs: CBoxInputs, t: float) -> Tensor:
+        s, n = self.sum_count(inputs, t)
+        return self.lambda_ * (s / n.clamp_min(1.0))
+
+    def compute_numden(self, inputs: CBoxInputs, t: float):
+        s, n = self.sum_count(inputs, t)
+        return self.lambda_ * s.float(), n.float()
+
+
+class AreaBox(_MaskedMean):
+    def sum_count(self, inputs: CBoxInputs, t: float):
         area = inputs.area.reshape(-1)
         valid = inputs.valid.reshape(-1)
         h, w = inputs.m_fg.shape[-2:]
@@ -60,22 +77,22 @@ class AreaBox(ElementaryLoss):
         else:
             upper = float(h * w)
         fx = torch.cat([-area, area - upper])
-        return self.lambda_ * elb_masked(fx, t, torch.cat([valid, valid]))
+        return elb_masked_sum_count(fx, t, torch.cat([valid, valid]))
 
 
-class ClScoring(ElementaryLoss):
-    def compute(self, inputs: CBoxInputs, t: float) -> Tensor:
+class ClScoring(_MaskedMean):
+    def sum_count(self, inputs: CBoxInputs, t: float):
         g = inputs.glabel.long()[:, None]
         fg = inputs.logits_fg.gather(1, g)[:, 0]
         bg = inputs.logits_bg.gather(1, g)[:, 0]
         cl = inputs.logits_clean.gather(1, g)[:, 0]
         valid = inputs.valid.reshape(-1)
         fx = torch.cat([cl - fg, bg - cl])
-        return self.lambda_ * elb_masked(fx, t, torch.cat([valid, valid]))
+        return elb_masked_sum_count(fx, t, torch.cat([valid, valid]))
 
 
-class SeedCbox(ElementaryLoss):
-    def compute(self, inputs: CBoxInputs, t: float) -> Tensor:
+class SeedCbox(_MaskedMean):
+    def sum_count(self, inputs: CBoxInputs, t: float):
         seg = torch.stack([inputs.m_bg, inputs.m_fg], -1).float()
         seeds = inputs.seeds
         seeded = seeds != self.seg_ignore_idx
@@ -84,7 +101,11 @@ class SeedCbox(ElementaryLoss):
         logp = torch.log_softmax(seg, -1)
         nll = -logp.gather(-1, tgt[..., None])[..., 0]
         nll = torch.where(valid_px, nll, 0.0)
-        return self.lambda_ * nll.sum() / valid_px.sum().clamp_min(1)
+        return nll.sum(), valid_px.sum()
+
+    def compute(self, inputs: CBoxInputs, t: float) -> Tensor:
+        s, n = self.sum_count(inputs, t)
+        return self.lambda_ * s / n.clamp_min(1)
 
 
 class BoxBounds(ElementaryLoss):

@@ -71,9 +71,13 @@ class ElementaryLoss:
         the chunk's frame count, which is right for every loss that
         averages over frames (or over a count proportional to them: the
         CRFs, the ELB priors, the entropy, the reconstruction); a loss
-        with a data-dependent denominator (the CE over seeded pixels)
-        overrides it."""
-        b = float(inputs.fcams.shape[0]) if inputs.fcams is not None else 1.0
+        with a data-dependent denominator (the CE over seeded pixels, the
+        masked ELB means of C_BOX) overrides it.  Summed over the ranks'
+        shards the same way, they give the loss over the global batch
+        (MasterLoss.compute_global)."""
+        ref = next((x for x in (inputs.fcams, inputs.cl_logits,
+                                inputs.glabel) if x is not None), None)
+        b = float(ref.shape[0]) if ref is not None else 1.0
         v = self.compute(inputs, t).float()
         return v * b, torch.full((), b, dtype=torch.float32, device=v.device)
 
@@ -116,8 +120,46 @@ class MasterLoss:
         to float association.  The batch must be a whole number of
         chunks, and a loss over clips (clip_len > 1) needs chunks of whole
         clips."""
-        from torch.utils.checkpoint import checkpoint
         b = inputs.fcams.shape[0]
+        self.compute_chunked_check(b, chunk)
+        if b // chunk == 1:
+            return self.compute(inputs, t, switches)
+        num, den = self._numden_chunked(inputs, t, chunk)
+        return self._combine(num / den.clamp_min(1.0), switches)
+
+    def compute_global(self, inputs: LossInputs, t: float,
+                       switches: List[float], group, chunk: int = 0
+                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """This rank's share of the losses over the dp group's global
+        batch (what JAX's global program computes): per loss, the local
+        numerator over the denominator summed over the group
+        (compute_numden, over groups of `chunk` frames when chunk > 0).
+        The shares of the group's ranks sum to the global loss, and so do
+        their gradients.  group: the dp group (parallel/mesh.py)."""
+        from tcam_wsol_video_tpu_torch.parallel.mesh import all_reduce_
+        b = inputs.fcams.shape[0] if inputs.fcams is not None else 0
+        if chunk > 0 and b // chunk > 1:
+            self.compute_chunked_check(b, chunk)
+            num, den = self._numden_chunked(inputs, t, chunk)
+        else:
+            nums, dens = zip(*(loss.compute_numden(inputs, t)
+                               for loss in self.losses))
+            num = torch.stack([n.float() for n in nums])
+            den = torch.stack([d.float() for d in dens])
+        den = all_reduce_(den.detach().clone(), group)
+        return self._combine(num / den.clamp_min(1.0), switches)
+
+    def _combine(self, per_loss: Tensor, switches: List[float]
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        holder = {loss.__name__: per_loss[i] * float(on)
+                  for i, (loss, on) in enumerate(zip(self.losses, switches))}
+        total = 0.0
+        for v in holder.values():
+            total = total + v
+        return total, holder
+
+    def compute_chunked_check(self, b: int, chunk: int) -> None:
+        """loss_chunk's conditions: whole chunks, and whole clips in each."""
         if chunk < 1 or b % chunk:
             raise ValueError(f"loss_chunk {chunk} does not divide the batch "
                              f"of {b} frames")
@@ -126,8 +168,13 @@ class MasterLoss:
             if clip > 1 and chunk % clip:
                 raise ValueError(f"loss_chunk {chunk} splits clips of "
                                  f"{clip} frames ({loss.__name__})")
-        if b // chunk == 1:
-            return self.compute(inputs, t, switches)
+
+    def _numden_chunked(self, inputs: LossInputs, t: float, chunk: int
+                        ) -> Tuple[Tensor, Tensor]:
+        """(numerators, denominators) of every loss summed over the chunks,
+        each chunk's body checkpointed."""
+        from torch.utils.checkpoint import checkpoint
+        b = inputs.fcams.shape[0]
         names = [f.name for f in dataclasses.fields(inputs)
                  if isinstance(getattr(inputs, f.name), torch.Tensor)
                  and getattr(inputs, f.name).dim() >= 1
@@ -149,10 +196,4 @@ class MasterLoss:
                 use_reentrant=False)
             num = num + n_c
             den = den + d_c
-        per_loss = num / den.clamp_min(1.0)
-        holder = {loss.__name__: per_loss[i] * float(on)
-                  for i, (loss, on) in enumerate(zip(self.losses, switches))}
-        total = 0.0
-        for v in holder.values():
-            total = total + v
-        return total, holder
+        return num, den

@@ -1,8 +1,11 @@
 """Extended log-barrier for constraints f(x) <= 0 (port of losses/elb.py):
 -log(-fx)/t where fx <= -1/t^2, else t*fx - log(1/t^2)/t + 1/t;
-mean-reduced (elb), or over the masked entries only (elb_masked: C_BOX's
-valid boxes); and the per-epoch anneal of t."""
+mean-reduced (elb), or summed over the masked entries with their count
+(elb_masked_sum_count: C_BOX's valid boxes, whose losses divide the one
+by the other); and the per-epoch anneal of t."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -22,12 +25,12 @@ def elb(fx: torch.Tensor, t: float) -> torch.Tensor:
     return _elb_terms(fx, t).mean()
 
 
-def elb_masked(fx: torch.Tensor, t: float, mask: torch.Tensor
-               ) -> torch.Tensor:
-    """The ELB's mean over the entries where mask is non-zero (0 when
-    none is)."""
+def elb_masked_sum_count(fx: torch.Tensor, t: float, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ELB's sum over the entries where mask is non-zero, their
+    count)."""
     m = mask.float()
-    return (_elb_terms(fx, t) * m).sum() / m.sum().clamp_min(1.0)
+    return (_elb_terms(fx, t) * m).sum(), m.sum()
 
 
 def update_t(t: float, mulcoef: float, max_t: float) -> float:

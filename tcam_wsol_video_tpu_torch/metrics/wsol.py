@@ -94,6 +94,27 @@ class BoxEvaluator:
             np.full(len(self.cam_threshold_list), best), target,
             preds_ordered)
 
+    def counters(self) -> np.ndarray:
+        """The image count and every counter, flat (float64), in the order
+        that set_counters reads."""
+        parts = [np.asarray([self.cnt], np.float64)]
+        for tracker in (self.num_correct, self.num_correct_top1,
+                        self.num_correct_top5):
+            parts += [np.asarray(tracker[s], np.float64)
+                      for s in self.iou_threshold_list]
+        return np.concatenate(parts)
+
+    def set_counters(self, flat: np.ndarray) -> None:
+        """The inverse of counters (the ranks' sums, JAX's
+        reduce_across_devices)."""
+        self.cnt = int(flat[0])
+        n_tau, i = len(self.cam_threshold_list), 1
+        for tracker in (self.num_correct, self.num_correct_top1,
+                        self.num_correct_top5):
+            for s in self.iou_threshold_list:
+                tracker[s] = np.asarray(flat[i:i + n_tau], np.float64)
+                i += n_tau
+
     def compute(self) -> List[float]:
         if self.cnt == 0:
             raise ValueError("no image was accumulated")

@@ -24,6 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
+from tcam_wsol_video_tpu_torch.parallel.sync_bn import global_batch_norm
+
 
 # the std of a unit normal truncated at +-2 (jax.nn.initializers.
 # variance_scaling's correction for its truncated_normal)
@@ -98,6 +101,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     takes the Bessel factor back out of the running variance:
         torch: r = (1 - m) r0 + m v n / (n - 1)
         flax:  r = (1 - m) r0 + m v  =  torch's r (1 - 1/n) + (1 - m) r0 / n
+
+    Under a mesh in use with a dp group (parallel/mesh.use), training mode
+    normalizes over the group's global batch (parallel/sync_bn.py) and
+    folds the global mean and biased variance, as flax under JAX's global
+    program; one rank keeps the route above.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
@@ -106,6 +114,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = pmesh.current_dp_group()
+        if group is not None:
+            return self._forward_global(x, group)
         # torch updates (and autograd saves) the copy, which stays intact
         n = x.numel() // x.shape[1]
         var_t = self.running_var.clone()
@@ -120,6 +131,19 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_((1.0 - self.momentum) / n).add_(
                 var_t, alpha=1.0 - 1.0 / n)
             self.num_batches_tracked.add_(1)
+        return out
+
+    def _forward_global(self, x: torch.Tensor, group) -> torch.Tensor:
+        out, mean, var = global_batch_norm(x, self.weight, self.bias,
+                                           self.eps, group)
+        if not _FROZEN_STATISTICS[0]:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(
+                    mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(
+                    var.to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
         return out
 
 
@@ -212,12 +236,14 @@ def dropout(x: torch.Tensor, p: float,
     """flax nn.Dropout in training: each entry kept with probability 1 - p
     and scaled by 1 / (1 - p), in x's dtype.  The mask is drawn from
     `generator` (on x's device), never from the global stream; a missing
-    generator raises."""
+    generator raises.  Under a mesh in use x's rows are the rank's rows
+    of the global batch's mask (parallel/mesh.global_draw)."""
     if p <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a generator")
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = pmesh.global_draw(torch.rand, x.shape, generator=generator,
+                          device=x.device)
     keep = u < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

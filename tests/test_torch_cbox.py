@@ -312,6 +312,12 @@ def test_cbox_losses_and_gating_match_jax(case, epoch):
 # ------------------------------------------------------------ DenseBoxNet
 @pytest.fixture(scope="module")
 def boxnet():
+    return boxnet_variables()
+
+
+def boxnet_variables() -> dict:
+    """The DenseBoxNet variables of the step tests (also read by
+    tests/test_torch_mesh_step.py)."""
     jm = JDenseBoxNet(encoder=JResNetWSOL(layers=LAYERS))
     variables = jax_variables(jm, seed=8)
     # the box head's bias set so that the training forward's boxes on the

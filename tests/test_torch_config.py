@@ -116,9 +116,10 @@ def test_yaml_values_keep_their_yaml_type(tmp_path):
 
 
 def test_yaml_keys_of_unported_modules_are_refused(tmp_path):
-    # C_BOX's yaml is ported now; the mesh keys (multi-GPU) are not
-    path = tmp_path / "mesh.yaml"
-    path.write_text("task: TCAM\narch: UnetTCAM\nmesh_dp: 2\n")
+    # C_BOX's yaml and the mesh keys are ported now; the image datasets'
+    # bucket_sz is not
+    path = tmp_path / "buckets.yaml"
+    path.write_text("task: TCAM\narch: UnetTCAM\nbucket_sz: 4\n")
     with pytest.raises(ValueError, match="not ported"):
         parse_args(["--config", str(path)])
 
@@ -211,7 +212,7 @@ def test_the_ported_keys():
               "im_rec_elb", "img_range", "sl_fc", "sl_block", "sl_tc_block",
               "crf_fc", "crf_lambda", "entropy_fc", "max_sizepos_fc_end_ep"):
         assert _same(getattr(TCAMConfig(), k), ref[k]), k
-    assert len(KEYS) == 204 and set(KEYS) <= set(ref)
+    assert len(KEYS) == 206 and set(KEYS) <= set(ref)
 
 
 THROUGHPUT = {"train_dispatch_chunk": "4", "eval_transfer": "uint16",

@@ -690,3 +690,89 @@ def test_capture_failure_raises_without_an_eager_retry(card, card_set,
     assert calls["n"] == 2 and tr.state.step == 0
     for k, v in tr.model.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+# a 2-rank step against one rank on the card: the loss terms and the
+# BatchNorm's forward within fp32 rounding of the global batch's sums;
+# the parameter updates relative to each tensor's largest update entry
+# within 1e-1: on the card one rank against itself under another cuDNN
+# algorithm choice already differs by 9.9e-2 at path A's model (PERF.md,
+# PR 13), and this one read 4.8e-2
+MESH_LOSS_RTOL = 1e-5
+MESH_BN_RTOL = 1e-6
+MESH_DELTA_RTOL = 1e-1
+
+
+def test_global_batch_norm_and_a_two_rank_step_on_the_card(card):
+    """Two ranks on the card (over gloo when there is one card: NCCL
+    refuses two ranks on one device; NCCL with two cards) against one
+    rank without a process group: the global BatchNorm's output and
+    running statistics, then one fp32 TCAM step (TF32 off, cuDNN
+    deterministic) on each rank's half of the batch, kernel 1 once on
+    each rank (path N(b) of chip_smoke.py at a small size)."""
+    import numpy as np
+
+    import torch_mesh_ranks as ranks
+    from torch_dist import Ranks
+    from tcam_wsol_video_tpu_torch.models.resnet import ResNetWSOL
+    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+    backend = "nccl" if torch.cuda.device_count() > 1 else "gloo"
+    group = Ranks(ranks.card_step, 2, 0, 8, 64, device="cuda",
+                  backend=backend)
+    one = ranks.card_step(0, 1, 0, 8, 64)
+    two = group.join()
+    y = np.concatenate([r["bn_y"] for r in two])
+    assert np.abs(y - one["bn_y"]).max() <= MESH_BN_RTOL * np.abs(
+        one["bn_y"]).max()
+    for r in two:
+        for k in ("bn_mean", "bn_var"):
+            assert np.abs(r[k] - one[k]).max() <= MESH_BN_RTOL * np.abs(
+                one[k]).max(), k
+        assert r["launches"] == one["launches"] == 1
+        for k, v in one["metrics"].items():
+            assert abs(r["metrics"][k] - v) <= MESH_LOSS_RTOL * max(
+                abs(v), 1e-6), k
+    torch.manual_seed(0)          # the ranks' initial weights
+    init = {k: v.numpy() for k, v in UnetTCAM(
+        ResNetWSOL(layers=ranks.LAYERS), "WGAP", ranks.CLASSES
+    ).state_dict().items()}
+    for k, v in one["state"].items():
+        np.testing.assert_array_equal(two[1]["state"][k],
+                                      two[0]["state"][k], k)
+        if k.endswith("num_batches_tracked"):
+            assert int(two[0]["state"][k]) == int(v) == 1
+            continue
+        if "running_" in k:        # one forward's statistics, folded once
+            assert np.abs(two[0]["state"][k] - v).max() <= 1e-4 * max(
+                np.abs(v).max(), 1e-12), k
+            continue
+        d_one, d_two = v - init[k], two[0]["state"][k] - init[k]
+        tol = (MESH_DELTA_RTOL * np.abs(d_one).max()
+               + 4 * np.finfo(np.float32).eps * np.abs(init[k]).max())
+        assert np.abs(d_two - d_one).max() <= tol, k
+
+
+def test_nvjpeg_route_is_repeatable_under_load(card, tmp_path):
+    """Two processes load the same 32 frames through the card's image
+    route 8 times each while the card is busy: every batch equals the
+    frames loaded one at a time.  Before the decoder waited for the
+    previous decode's work before reusing its state, about a third of
+    the frames came out wrong this way (chip_nvjpeg_stress.py; PERF.md,
+    PR 13)."""
+    import numpy as np
+
+    import torch_mesh_ranks as ranks
+    from torch_dist import Ranks
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(32):
+        img = (rng.random((270, 360, 3)) * 60).astype(np.uint8)
+        img[50:200, 80:300] = rng.integers(0, 255, 3)
+        p = str(tmp_path / f"f{i}.jpg")
+        with open(p, "wb") as f:
+            f.write(nvjpeg_loader.encode(img, 95))
+        paths.append(p)
+    bad = Ranks(ranks.nvjpeg_repeat, 2, paths, 8, device="cuda",
+                backend="gloo").join()
+    assert bad == [0, 0]

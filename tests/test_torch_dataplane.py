@@ -413,7 +413,7 @@ def test_cli_trains_with_the_data_plane_flags(synth, tmp_path, resize,
 
 def test_cli_refuses_what_is_not_ported(synth, tmp_path):
     with pytest.raises(SystemExit):
-        cli_train.main(_cli_flags(synth, str(tmp_path), "--mesh_dp", "2"))
+        cli_train.main(_cli_flags(synth, str(tmp_path), "--bucket_sz", "4"))
     with pytest.raises(ValueError):
         cli_train.main(_cli_flags(synth, str(tmp_path), "--h2d_transfer",
                                   "uint16"))

@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of
-tcam_wsol_video_tpu_torch and chip_smoke.py loads neither jax nor the JAX
+tcam_wsol_video_tpu_torch and the chip scripts loads neither jax nor the JAX
 package (checked in a fresh interpreter: the tests' own process has
 imported both)."""
 import os
@@ -21,11 +21,14 @@ def _modules():
 def test_port_and_chip_smoke_import_no_jax():
     mods = _modules()
     assert len(mods) > 40
+    # the process mesh and the global BatchNorm among them
+    assert {"tcam_wsol_video_tpu_torch.parallel.mesh",
+            "tcam_wsol_video_tpu_torch.parallel.sync_bn"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         f"sys.path.insert(0, {ROOT!r})",
         f"for m in {mods!r}: importlib.import_module(m)",
-        "import chip_smoke, chip_dress_rehearsal",
+        "import chip_smoke, chip_dress_rehearsal, chip_nvjpeg_stress",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tcam_wsol_video_tpu'))",
         "print(len(sys.modules), bad)",
