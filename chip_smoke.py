@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --mesh-only    # path D, then path N alone
+    python3 chip_smoke.py --visuals-only # path D, then paths O, P and
+                                         # the import phase alone
 
 Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from the sources in this checkout (one nvcc
@@ -146,16 +148,39 @@ Phases (any failure raises and the script exits non-zero):
      each rank; each rank's step ms, gradient all-reduce ms and peak;
      (c) cli/evaluate.main on the 2 ranks over (a)'s snapshot: counters
      bit-equal to (a)'s world-1 evaluation;
- 20. the landmark filter's solve at path B's shapes: the lockstep solve
+ 20. path O (after path N, on path D's set and its UnetTCAM ResNet-50
+     best-localization snapshot): cli/demo_video.main on the card over
+     the test-video-demo split (10 videos, 160 frames, eval bs 32) with
+     --reuse_threshold 0 and at the median frame-to-frame mean |delta|
+     of that run: the AVIs exist, hold each video's frames (chunks and
+     idx1), frame 0 decoded by nvJPEG lies within DEMO_LUMA_PSNR_DB of
+     its overlay array, every reused row's CAM is its video's last
+     computed CAM, frames/s with and without reuse; then path D's trainer
+     for 1 epoch with --plot_tr_cam_progress true and the final visual
+     dump (every file JAX's hooks write, kernel 1 once a step); then
+     cli/evaluate.main --multi_contour_eval false on path D's snapshot,
+     its MaxBoxAcc and the host contour sweep's ms an image;
+ 21. path P: STD_CL ResNet-50/WGAP at crop 224, bs 32, on path D's
+     frames laid out as image sets (2 frames a train shot, path D's val
+     and test frames): 1 epoch and cli/evaluate.main as CUB; the PxAP
+     route (cli/evaluate.main as OpenImages over PNG masks of the GT
+     boxes written here); 1 epoch of ILSVRC's bucket loop over 2 buckets
+     (16 chunk files), `true` as the stage and cleanup commands, every
+     train id seen once; then the import phase: a torchvision-named
+     ResNet-50 state dict, saved with torch.save, into the port's encoder
+     on the card, its logits against the CPU's (TF32 off) within
+     IMPORT_RTOL;
+ 22. the landmark filter's solve at path B's shapes: the lockstep solve
      against cholesky_ex, both timed, and the fused route (lockstep) at
      batch 32 against its plain version;
- 21. time each kernel (and the exact filter's per-call spread and
+ 23. time each kernel (and the exact filter's per-call spread and
      scratch), its plain version and its bound at the main paths' shapes,
      fail if a kernel reads under its bound, hold kernel and plain version
      together there, and print the kernel table.
 The sources build first: one nvcc per CUDA source (the two kernel files
 and the nvJPEG codec) and g++ for native/boxsweep.cpp, all started
-together.  The last line is {"ok": true, "device": {...}}.  Details go to
+together (and csrc/contours.cpp with g++ beside them).  The last line is
+{"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.  There is no CPU fallback: without CUDA the
 script exits non-zero and prints no result.
 """
@@ -1148,7 +1173,8 @@ def phase_trainer(seed: int, data: dict) -> dict:
             "jpeg_round_trip_mean_abs": data["jpeg_round_trip_mean_abs"],
             "launches": launches, "steps": steps, "conv_dtypes": convs,
             "train": out["records"]["train"], "eval": out["records"]["eval"],
-            "test_best_loc": rep["best"], "peak_mem_gib": peak}
+            "test_best_loc": rep["best"], "peak_mem_gib": peak,
+            "outd": out["outd"]}
 
 
 # ------------------------------------------ path G: the train data plane
@@ -3161,6 +3187,503 @@ def phase_mesh(seed: int, data: dict, path_d: dict) -> dict:
             "launches": launches, "ranks_s": ranks_s}
 
 
+# ------------------------------------------- path O: the demo and visuals
+# the JPEG bound of a demo frame (quality 95, 4:2:0 chroma as mp4v's
+# yuv420p): PSNR of the luma against the overlay array, as
+# tests/test_torch_viz.py holds libjpeg's frames
+DEMO_LUMA_PSNR_DB = 40.0
+PATH_O_EPOCHS = 1
+PATH_O_VIDEOS = 10
+# the files JAX's trainer hooks write (engine/trainer.py), each snapshot's
+# test pass and the meters; .avi stands for JAX's demo .mp4
+VISUAL_FILES = ("performances.pkl", "performances.txt", "performances.png",
+                "progress/epoch_0000.png")
+
+
+def read_avi_frames(path: str) -> tuple:
+    """(the JPEG bytes of each `00dc` chunk of the movi list, the idx1
+    entries) of a Motion-JPEG AVI."""
+    import struct
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI ",
+          f"{path} is not a RIFF AVI")
+    frames, n_index, pos = [], 0, 12
+    while pos + 8 <= len(data):
+        cc = data[pos:pos + 4]
+        (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
+        if cc == b"LIST" and data[pos + 8:pos + 12] == b"movi":
+            q, end = pos + 12, pos + 8 + size
+            while q < end:
+                (sz,) = struct.unpack("<I", data[q + 4:q + 8])
+                if data[q:q + 4] == b"00dc":
+                    frames.append(data[q + 8:q + 8 + sz])
+                q += 8 + sz + (sz & 1)
+        elif cc == b"idx1":
+            n_index = size // 16
+        pos += 8 + size + (size & 1)
+    return frames, n_index
+
+
+def luma_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    w = np.asarray([0.299, 0.587, 0.114])
+    mse = (((a.astype(np.float64) - b.astype(np.float64)) @ w) ** 2).mean()
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def _checked_planner():
+    """A FrameReusePlanner that records each frame's mean |delta| to its
+    video's previous frame and checks that every reused row gets the last
+    computed CAM of its video."""
+    from tcam_wsol_video_tpu_torch.engine.temporal_reuse import \
+        FrameReusePlanner
+
+    class CheckedPlanner(FrameReusePlanner):
+        made: list = []
+
+        def __init__(self, threshold):
+            super().__init__(threshold)
+            self.diffs, self.prev, self.last = [], {}, {}
+            self.reused_checked = 0
+            CheckedPlanner.made.append(self)
+
+        def plan(self, video_ids, raws):
+            for vid, raw in zip(video_ids, raws):
+                p = self.prev.get(vid)
+                if p is not None:
+                    self.diffs.append(float(np.mean(np.abs(
+                        raw.astype(np.float32) - p.astype(np.float32)))))
+                self.prev[vid] = raw
+            return super().plan(video_ids, raws)
+
+        def resolve_rows(self, video_ids, compute_rows, reuse_from,
+                         computed_cams, out):
+            super().resolve_rows(video_ids, compute_rows, reuse_from,
+                                 computed_cams, out)
+            row_to_j = {r: j for j, r in enumerate(compute_rows)}
+            for i, src in enumerate(reuse_from):
+                if src is None:
+                    self.last[video_ids[i]] = computed_cams[row_to_j[i]]
+                    continue
+                check(np.array_equal(out[i], self.last[src]),
+                      f"path O: a reused row of {src} is not its last "
+                      "computed CAM")
+                self.reused_checked += 1
+
+    return CheckedPlanner
+
+
+def run_demo(argv: list, planner_cls) -> dict:
+    """cli/demo_video.main with the checked planner and build_demo_video
+    recording each video's frames before it encodes them (nvJPEG)."""
+    from tcam_wsol_video_tpu_torch.cli import demo_video
+
+    frames = {}
+    real_build = demo_video.wsol_viz.build_demo_video
+    real_planner = demo_video.FrameReusePlanner
+
+    def build(fr, path, **kw):
+        frames[path] = [np.array(f) for f in fr]
+        return real_build(fr, path, **kw)
+
+    demo_video.wsol_viz.build_demo_video = build
+    demo_video.FrameReusePlanner = planner_cls
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = demo_video.main(argv)
+        res["wall_s"] = time.perf_counter() - t0
+    finally:
+        demo_video.wsol_viz.build_demo_video = real_build
+        demo_video.FrameReusePlanner = real_planner
+    res["frames_by_path"] = frames
+    res["planner"] = planner_cls.made[-1]
+    return res
+
+
+def check_avis(tag: str, res: dict) -> dict:
+    """Each AVI holds its video's frames (chunks and index); its frame 0,
+    decoded by nvJPEG, is within the JPEG bound of the overlay array."""
+    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    check(len(res["written"]) == PATH_O_VIDEOS,
+          f"{tag}: {len(res['written'])} videos written, not "
+          f"{PATH_O_VIDEOS}")
+    psnrs = []
+    for path in res["written"]:
+        check(os.path.isfile(path), f"{tag}: {path} was not written")
+        want = res["frames_by_path"][path]
+        jpegs, n_index = read_avi_frames(path)
+        check(len(jpegs) == n_index == len(want) > 0,
+              f"{tag}: {path} holds {len(jpegs)} frames ({n_index} "
+              f"indexed), not {len(want)}")
+        tmp = path + ".frame0.jpg"
+        with open(tmp, "wb") as f:
+            f.write(jpegs[0])
+        dec = nvjpeg_loader.decode(tmp).cpu().numpy()
+        os.remove(tmp)
+        check(dec.shape == want[0].shape, f"{tag}: frame 0 decodes to "
+              f"{dec.shape}, not {want[0].shape}")
+        psnrs.append(luma_psnr(dec, want[0]))
+    check(min(psnrs) >= DEMO_LUMA_PSNR_DB, f"{tag}: frame 0 luma PSNR "
+          f"{min(psnrs):.2f} dB under {DEMO_LUMA_PSNR_DB}")
+    n = sum(len(v) for v in res["frames_by_path"].values())
+    check(n == res["frames"], f"{tag}: {n} frames in the AVIs, "
+          f"{res['frames']} frames seen")
+    return {"videos": len(res["written"]), "frames": n,
+            "frame0_luma_psnr_min_db": min(psnrs)}
+
+
+def phase_demo(seed: int, data: dict, path_d: dict) -> dict:
+    """Path O on path D's set and its UnetTCAM ResNet-50 snapshot (crop
+    224, eval bs 32): cli/demo_video.main on the card over the
+    test-video-demo split (10 videos), with reuse off and with the
+    threshold at the median frame-to-frame mean |delta| of the first run;
+    then path D's trainer for 1 epoch with the CAM-progress grid and the
+    final visual dump (every file JAX's hooks write); then
+    cli/evaluate.main --multi_contour_eval false on path D's snapshot,
+    counts reset just before each."""
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_evaluate
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import constants
+
+    root = data["root"]
+    store = os.path.join(root, "cams")
+    base = common_flags(root, seed) + [
+        "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size", "32",
+        "--freeze_cl", "True", "--exp_dir", path_d["outd"],
+        "--max_videos", str(PATH_O_VIDEOS)]
+    out = {"runs": {}}
+    planner_cls = _checked_planner()
+    reset_counts()
+    first = run_demo(base + ["--out", os.path.join(root, "demo_0")],
+                     planner_cls)
+    out["launches_demo"] = read_counts()
+    threshold = float(np.median(first["planner"].diffs))
+    second = run_demo(base + ["--out", os.path.join(root, "demo_reuse"),
+                              "--reuse_threshold", f"{threshold:.6f}"],
+                      planner_cls)
+    for name, res, thr in (("no_reuse", first, 0.0),
+                           ("reuse", second, threshold)):
+        p = res["planner"]
+        avi = check_avis(f"path O {name}", res)
+        rec = {"threshold": thr, "computed": res["computed"],
+               "reused": res["reused"],
+               "reused_checked": p.reused_checked,
+               "compute_s": res["compute_s"], "wall_s": res["wall_s"],
+               "model_frames_per_s": res["frames"] / res["compute_s"],
+               "frames_per_s": res["frames"] / res["wall_s"], **avi}
+        out["runs"][name] = rec
+        print(f"[path O demo {name}] threshold {thr:.3f}: {res['computed']}"
+              f" rows computed, {res['reused']} reused ({p.reused_checked} "
+              f"checked against their video's last computed CAM); "
+              f"{avi['frames']} frames in {avi['videos']} AVIs, frame 0 "
+              f"luma PSNR min {avi['frame0_luma_psnr_min_db']:.2f} dB; "
+              f"{rec['model_frames_per_s']:.1f} frames/s in the eval step "
+              f"and its readback, {rec['frames_per_s']:.1f} frames/s end to"
+              f" end ({res['wall_s']:.2f} s)", flush=True)
+    check(first["reused"] == 0, "path O: frames reused at threshold 0")
+    check(second["reused"] > 0 and second["computed"] > 0,
+          f"path O: at threshold {threshold:.3f} {second['reused']} rows "
+          f"reused, {second['computed']} computed")
+    check(second["planner"].reused_checked == second["reused"],
+          "path O: not every reused row was checked")
+
+    # path D's trainer for 1 epoch with the progress grid and the visuals
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_train.main(path_d_flags(
+        root, store, os.path.join(root, "exps_o"), epochs=PATH_O_EPOCHS,
+        exp_id="o") + ["--plot_tr_cam_progress", "true"])
+    torch.cuda.synchronize()
+    out["trainer_wall_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    steps = sum(r["steps"] for r in res["records"]["train"])
+    check(launches["bilateral_exact"]["kernel"] == steps,
+          f"path O trainer: kernel 1 launched "
+          f"{launches['bilateral_exact']['kernel']} times in {steps} steps")
+    outd = res["outd"]
+    want = list(VISUAL_FILES)
+    for tag in res["test"]:
+        want += [f"best_tau_test_{tag}.yaml", f"boxacc_test_{tag}.png"]
+    for s in (30, 50, 70):
+        want += [f"visuals/test/ordered_iou_{s}.yaml",
+                 f"visuals/test/ordered_iou_{s}.txt"]
+    missing = [f for f in want if not os.path.isfile(os.path.join(outd, f))]
+    sheets = {s: len([f for f in os.listdir(os.path.join(
+        outd, "visuals", "test", str(s))) if f.endswith(".png")])
+        for s in (30, 50, 70)}
+    some = len([f for f in os.listdir(os.path.join(
+        outd, "visuals", "test", "some_taux")) if f.endswith(".png")])
+    print(f"[path O trainer] {steps} steps, kernel 1 x"
+          f"{launches['bilateral_exact']['kernel']}; {len(want)} of JAX's "
+          f"files checked, missing {missing}; sheets per IoU {sheets}, "
+          f"some_taux {some}; cli/train.main {out['trainer_wall_s']:.1f} s",
+          flush=True)
+    check(not missing, f"path O trainer: missing {missing}")
+    # 16 images (visual_dump_n) a test pass; both snapshots' passes write
+    # to visuals/test, where an image ranked alike by both is one file
+    check(all(16 <= v <= 32 for v in sheets.values()) and some == 16,
+          "path O trainer: not 16 prediction sheets a test pass")
+    out.update(trainer_launches=launches, trainer_steps=steps,
+               visual_files=len(want))
+
+    # the single-largest-contour protocol on path D's snapshot
+    reset_counts()
+    ev = cli_evaluate.main(common_flags(root, seed) + [
+        "--task", "TCAM", "--arch", "UnetTCAM", "--eval_batch_size", "32",
+        "--freeze_cl", "True", "--exp_dir", path_d["outd"],
+        "--multi_contour_eval", "false"])
+    out["single_contour"] = {k: v for k, v in ev.items()
+                             if isinstance(v, (int, float))}
+    out["single_contour"]["timing"] = ev["timing"]
+    print(f"[path O evaluate] --multi_contour_eval false on path D's "
+          f"{constants.BEST_LOC}: MaxBoxAcc 30/50/70 " + "/".join(
+              f"{ev[f'maxboxacc_{s}']:.2f}" for s in (30, 50, 70))
+          + f", {ev['n_images']} images, host contour sweep "
+          f"{ev['timing']['sweep_ms_per_image']:.3f} ms/image at "
+          f"cam_curve_interval 0.01 ({ev['timing']['images_per_s']:.1f} "
+          f"images/s)", flush=True)
+    check(ev["n_images"] == 320, "path O evaluate: not 320 images")
+    check(ev["timing"]["sweep"] == "host", "path O evaluate: not the host "
+          "sweep")
+    return out
+
+
+# --------------------------------------------- path P: the image datasets
+PATH_P_FRAMES_PER_SHOT = 2
+PATH_P_CHUNKS = 16          # 2 buckets of ILSVRC's bucket_sz 8
+
+
+def make_image_sets(data: dict) -> dict:
+    """Path D's frames as CUB, ILSVRC and OpenImages: the first
+    PATH_P_FRAMES_PER_SHOT frames of each train shot are train images;
+    val and test keep path D's frames and boxes (OpenImages: each test
+    and val frame's box as a PNG mask under a mask tree of its own);
+    ILSVRC's train ids in PATH_P_CHUNKS chunk files."""
+    from tcam_wsol_video_tpu_torch.data import folds, png
+
+    synth = data["synth"]
+    base = os.path.join(data["root"], "image_sets")
+    shutil.rmtree(base, ignore_errors=True)
+    mask_root = os.path.join(base, "masks")
+    meta = {}
+    for ds in ("CUB", "ILSVRC", "OpenImages"):
+        os.makedirs(os.path.join(base, "data"), exist_ok=True)
+        os.symlink(synth["data_root"], os.path.join(base, "data", ds))
+        meta[ds] = os.path.join(base, "folds", ds)
+    train_ids = []
+    for split in ("train", "val", "test"):
+        md = folds.load_split_metadata(synth["metadata_root"], split)
+        if split == "train":
+            ids = [f"{s}/{f}" for s in md.image_ids for f in sorted(
+                os.listdir(os.path.join(synth["data_root"], s)))[
+                    :PATH_P_FRAMES_PER_SHOT]]
+            labels = {i: md.labels["/".join(i.split("/")[:5])] for i in ids}
+            train_ids = ids
+        else:
+            ids, labels = md.image_ids, md.labels
+        for ds, d in meta.items():
+            sd = os.path.join(d, split)
+            os.makedirs(sd, exist_ok=True)
+            with open(os.path.join(sd, "image_ids.txt"), "w") as f:
+                f.writelines(f"{i}\n" for i in ids)
+            with open(os.path.join(sd, "class_labels.txt"), "w") as f:
+                f.writelines(f"{i},{labels[i]}\n" for i in ids)
+            with open(os.path.join(sd, "image_sizes.txt"), "w") as f:
+                f.writelines(f"{i},{md.sizes[i][0]},{md.sizes[i][1]}\n"
+                             for i in ids if i in md.sizes)
+            with open(os.path.join(sd, "localization.txt"), "w") as f:
+                for i in ids if split != "train" else ():
+                    if ds == "OpenImages":
+                        f.write(f"{i},{i}.mask.png\n")
+                        continue
+                    for b in md.boxes[i]:
+                        f.write(f"{i},{b[0]},{b[1]},{b[2]},{b[3]}\n")
+        if split != "train":
+            for i in ids:
+                w, h = md.sizes[i]
+                m = np.zeros((h, w), np.uint8)
+                for x0, y0, x1, y1 in md.boxes[i]:
+                    m[int(y0):int(y1) + 1, int(x0):int(x1) + 1] = 255
+                path = os.path.join(mask_root, f"{i}.mask.png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                png.write_png(path, m)
+    per = -(-len(train_ids) // PATH_P_CHUNKS)
+    for c in range(PATH_P_CHUNKS):
+        with open(os.path.join(meta["ILSVRC"], "train",
+                               f"train_chunk_{c}.txt"), "w") as f:
+            f.writelines(f"{i}\n" for i in train_ids[c * per:(c + 1) * per])
+    return {"base": base, "data_root": os.path.join(base, "data"),
+            "meta": meta, "mask_root": mask_root, "train_ids": train_ids}
+
+
+def image_set_flags(sets: dict, ds: str, outd: str, seed: int) -> list:
+    """STD_CL ResNet-50/WGAP at crop 224, bs 32, 1 epoch, on `ds`."""
+    return [
+        "--dataset", ds, "--data_root", sets["data_root"],
+        "--metadata_root", sets["meta"][ds], "--crop_size", "224",
+        "--resize_size", "256", "--cam_curve_interval", "0.01",
+        "--seed", str(seed), "--log_every", "0", "--device", "cuda",
+        "--task", "STD_CL", "--batch_size", "32", "--eval_batch_size", "32",
+        "--max_epochs", "1", "--lr", "0.001", "--checkpoint_save", "0",
+        "--outd", outd, "--exp_id", ds.lower()]
+
+
+def phase_image_sets(seed: int, data: dict) -> dict:
+    """Path P: CUB (cli/train.main 1 epoch, then cli/evaluate.main on its
+    best-localization snapshot), OpenImages' PxAP route (cli/evaluate.main
+    on the same snapshot over the masks), and ILSVRC's bucket loop
+    (cli/train.main 1 epoch over 2 buckets with `true` as the stage and
+    cleanup commands: every train id once), counts reset just before
+    each."""
+    from tcam_wsol_video_tpu_torch.cli import evaluate as cli_evaluate
+    from tcam_wsol_video_tpu_torch.cli import train as cli_train
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.data.pipeline import DataPipeline
+
+    t0 = time.perf_counter()
+    sets = make_image_sets(data)
+    out = {"setup_s": time.perf_counter() - t0,
+           "train_images": len(sets["train_ids"])}
+    outd = os.path.join(data["root"], "exps_p")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cub = cli_train.main(image_set_flags(sets, "CUB", outd, seed))
+    out["cub_wall_s"] = time.perf_counter() - t0
+    out["cub_launches"] = read_counts()
+    tr = cub["records"]["train"][0]
+    check(tr["n"] == len(sets["train_ids"]), f"path P CUB: {tr['n']} "
+          f"train images, not {len(sets['train_ids'])}")
+    check(cub["args"].num_classes == 200, "path P CUB: not 200 classes")
+    snap = cub["outd"]
+    ev = cli_evaluate.main(image_set_flags(sets, "CUB", outd, seed)[:-4]
+                           + ["--exp_dir", snap])
+    out["cub"] = {"train": tr, "test_best_loc": {
+        k: v for k, v in cub["test"][constants.BEST_LOC].items()
+        if isinstance(v, (int, float))}, "evaluate": {
+        k: v for k, v in ev.items() if isinstance(v, (int, float))}}
+    trainer50 = cub["test"][constants.BEST_LOC]["maxboxacc_50"]
+    print(f"[path P CUB] {tr['steps']} steps, median step "
+          f"{tr['median_step_ms']:.2f} ms, data wait "
+          f"{tr['data_wait_ms_per_step']:.2f} ms/step; test MaxBoxAcc "
+          f"30/50/70 " + "/".join(f"{ev[f'maxboxacc_{s}']:.2f}"
+                                  for s in (30, 50, 70))
+          + f" (evaluate), the trainer's {trainer50:.2f} at 50; "
+          f"cli/train.main {out['cub_wall_s']:.1f} s", flush=True)
+    check(ev["n_images"] == 320, "path P CUB evaluate: not 320 images")
+
+    # OpenImages' PxAP route on the CUB snapshot (200 classes)
+    reset_counts()
+    oi = cli_evaluate.main(
+        image_set_flags(sets, "OpenImages", outd, seed)[:-4]
+        + ["--exp_dir", snap, "--num_classes", "200", "--mask_root",
+           sets["mask_root"]])
+    out["openimages"] = {k: v for k, v in oi.items()
+                         if isinstance(v, (int, float))}
+    out["openimages"]["timing"] = oi["timing"]
+    print(f"[path P OpenImages] PxAP {oi['pxap']:.3f} over "
+          f"{oi['n_images']} images (masks read and histogrammed "
+          f"{oi['timing']['sweep_ms_per_image']:.3f} ms/image on the "
+          f"host), classification {oi['classification']:.2f}", flush=True)
+    check(oi["timing"]["sweep"] == "pxap" and oi["n_images"] == 320,
+          "path P OpenImages: not the PxAP route over 320 images")
+    check(0.0 < oi["pxap"] <= 100.0, f"path P OpenImages: PxAP "
+          f"{oi['pxap']}")
+
+    # ILSVRC: 2 buckets, every train id once
+    seen = []
+    real = DataPipeline.epoch
+
+    def spy(self, epoch, subset=None):
+        for b in real(self, epoch, subset):
+            if self.ds.split == constants.TRAINSET:
+                valid = b["valid"].cpu().numpy()
+                seen.extend(i for i, v in zip(b["image_id"], valid) if v)
+            yield b
+
+    DataPipeline.epoch = spy
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        il = cli_train.main(image_set_flags(sets, "ILSVRC", outd, seed) + [
+            "--nbr_chunks", str(PATH_P_CHUNKS), "--bucket_stage_cmd", "true",
+            "--bucket_cleanup_cmd", "true"])
+    finally:
+        DataPipeline.epoch = real
+    out["ilsvrc_wall_s"] = time.perf_counter() - t0
+    tr = il["records"]["train"][0]
+    out["ilsvrc"] = {"train": tr, "buckets": il["args"].nbr_buckets,
+                     "seen": len(seen), "distinct": len(set(seen))}
+    print(f"[path P ILSVRC] {il['args'].nbr_buckets} buckets, {tr['steps']}"
+          f" steps, median step {tr['median_step_ms']:.2f} ms, data wait "
+          f"{tr['data_wait_ms_per_step']:.2f} ms/step; {len(seen)} train "
+          f"rows, {len(set(seen))} distinct of {len(sets['train_ids'])}; "
+          f"cli/train.main {out['ilsvrc_wall_s']:.1f} s", flush=True)
+    check(il["args"].nbr_buckets == 2, "path P ILSVRC: not 2 buckets")
+    check(sorted(seen) == sorted(sets["train_ids"]),
+          "path P ILSVRC: the epoch did not see every train id once")
+    shutil.rmtree(sets["base"])
+    return out
+
+
+# ---------------------------------------------- the torchvision import
+# the card against the CPU at fp32 with TF32 off (the C_BOX hold's bound)
+IMPORT_RTOL = CBOX_TERM_RTOL
+
+
+def phase_import(seed: int) -> dict:
+    """A torchvision-named ResNet-50 state dict (random, seeded), saved
+    with torch.save, loaded into the port's STD_CL ResNet-50 on the card
+    and on the CPU (models/import_torch.py); the eval forward's logits of
+    4 images at 224 px, TF32 off, within IMPORT_RTOL."""
+    import copy
+    from tcam_wsol_video_tpu_torch.core.config import TCAMConfig
+    from tcam_wsol_video_tpu_torch.models import import_torch
+    from tcam_wsol_video_tpu_torch.models.factory import \
+        create_model_from_args
+
+    torch.manual_seed(seed)
+    cpu = create_model_from_args(TCAMConfig(), device="cpu").eval()
+    probe = {f"layer{i}.0.downsample.0.weight": 0 for i in range(1, 5)}
+    own = cpu.encoder.state_dict()
+    rng = np.random.default_rng(seed)
+    sd = {"fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)}
+    for src, dst in import_torch.NAME_MAPS["resnet50"](probe):
+        shape = tuple(own[dst].shape)
+        if src.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif src.endswith(("running_mean", "bias")):
+            v = rng.normal(0.0, 0.1, shape)
+        elif len(shape) == 1:
+            v = 1.0 + rng.normal(0.0, 0.1, shape)
+        else:
+            v = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)
+        sd[src] = torch.from_numpy(v.astype(np.float32))
+    path = os.path.join(ROOT, "build", "chip_smoke_resnet50_tv.pth")
+    torch.save(sd, path)
+    card = copy.deepcopy(cpu).to("cuda")
+    t0 = time.perf_counter()
+    import_torch.load_pretrained_encoder(card, path, "resnet50")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    import_torch.load_pretrained_encoder(cpu, path, "resnet50")
+    os.remove(path)
+    check(torch.equal(card.encoder.conv1.weight.cpu(), sd["conv1.weight"]),
+          "import: conv1 is not the file's")
+    x = torch.from_numpy(rng.normal(0, 1, (4, 224, 224, 3)).astype(
+        np.float32))
+    with exact_fp32(), torch.no_grad():
+        got = card(x.cuda(), torch.float32)["cl_logits"].double().cpu()
+        want = cpu(x, torch.float32)["cl_logits"].double()
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[import] torchvision ResNet-50 ({len(sd)} tensors, fc "
+          f"dropped) into the port's encoder on the card in {load_ms:.1f} "
+          f"ms; logits card vs CPU rel {rel:.3e} (tol {IMPORT_RTOL})",
+          flush=True)
+    check(rel <= IMPORT_RTOL, f"import: logits card vs CPU rel {rel:.3e}")
+    return {"tensors": len(sd), "load_ms": load_ms, "logits_rel": rel}
+
+
 # ---------------------------------------------- the landmark filter's solve
 # the lockstep solve against cholesky_ex, relative L2
 # (tests/test_torch_landmarks.py's SOLVE_RTOL)
@@ -3561,6 +4084,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="path D, then path N alone (several ranks); not "
                     "the whole check")
+    ap.add_argument("--visuals-only", action="store_true",
+                    help="path D, then paths O and P and the import phase "
+                    "alone; not the whole check")
     a = ap.parse_args(argv)
 
     # the port first: without the checkout around the script this fails
@@ -3583,7 +4109,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(nativebuild.build_all, ["boxsweep"], True)
+        host = pool.submit(nativebuild.build_all, ["boxsweep", "contours"],
+                           True)
         built = build.build_all(force=True)
         host_built = host.result()
     for name, res in host_built.items():
@@ -3599,14 +4126,24 @@ def main(argv=None) -> int:
               "build_s": {n: r["seconds"] for n, r in {**built,
                                                         **host_built}.items()},
               "ptxas": {n: r["log"] for n, r in built.items()}}
-    if a.mesh_only:
+    if a.mesh_only or a.visuals_only:
         data = make_trainer_set(SEED)
         result["trainer"] = phase_trainer(SEED, data)
-        result["mesh"] = phase_mesh(SEED, data, result["trainer"])
+        if a.mesh_only:
+            result["mesh"] = phase_mesh(SEED, data, result["trainer"])
+        else:
+            t_new = time.perf_counter()
+            result["demo"] = phase_demo(SEED, data, result["trainer"])
+            result["image_sets"] = phase_image_sets(SEED, data)
+            result["import"] = phase_import(SEED)
+            result["paths_o_p_s"] = time.perf_counter() - t_new
+            print(f"[summary] paths O, P and the import phase "
+                  f"{result['paths_o_p_s']:.1f} s", flush=True)
         shutil.rmtree(data["root"])
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_mesh.json"),
-                  "w") as f:
+        name = "mesh" if a.mesh_only else "visuals"
+        with open(os.path.join(ROOT, "chiprun_out",
+                               f"chip_smoke_{name}.json"), "w") as f:
             json.dump(result, f, indent=1, default=str)
         print(smi)
         return 0
@@ -3643,6 +4180,11 @@ def main(argv=None) -> int:
     result["cam_methods"] = phase_cam_methods(
         SEED, data, result["chain"]["stage1_outd"])
     result["mesh"] = phase_mesh(SEED, data, result["trainer"])
+    t_new = time.perf_counter()
+    result["demo"] = phase_demo(SEED, data, result["trainer"])
+    result["image_sets"] = phase_image_sets(SEED, data)
+    result["import"] = phase_import(SEED)
+    result["paths_o_p_s"] = time.perf_counter() - t_new
     shutil.rmtree(data["root"])
     result["unet_encoders"] = phase_unet_encoders(SEED)
     result["roi"] = phase_roi(SEED)
@@ -3885,6 +4427,28 @@ def main(argv=None) -> int:
           f"{max(pn['loss_rel'].values()):.2e}, updates "
           f"{pn['delta_rel']:.2e}, BN {pn['bn_rel']:.2e}; sharded eval "
           f"bit-equal", flush=True)
+    po, pp, pim = result["demo"], result["image_sets"], result["import"]
+    print("[summary] path O demo: " + ", ".join(
+        f"{n} (threshold {r['threshold']:.3f}) {r['computed']} computed / "
+        f"{r['reused']} reused, {r['model_frames_per_s']:.1f} frames/s in "
+        f"the eval step, {r['frames_per_s']:.1f} end to end"
+        for n, r in po["runs"].items())
+        + f"; trainer visuals {po['visual_files']} files; single-largest "
+        f"contour MaxBoxAcc@50 "
+        f"{po['single_contour']['maxboxacc_50']:.2f}, host sweep "
+        f"{po['single_contour']['timing']['sweep_ms_per_image']:.3f} "
+        f"ms/image", flush=True)
+    print(f"[summary] path P: CUB step "
+          f"{pp['cub']['train']['median_step_ms']:.2f} ms, data wait "
+          f"{pp['cub']['train']['data_wait_ms_per_step']:.2f} ms/step, "
+          f"MaxBoxAcc@50 {pp['cub']['evaluate']['maxboxacc_50']:.2f}; "
+          f"OpenImages PxAP {pp['openimages']['pxap']:.3f}; ILSVRC "
+          f"{pp['ilsvrc']['buckets']} buckets, step "
+          f"{pp['ilsvrc']['train']['median_step_ms']:.2f} ms, data wait "
+          f"{pp['ilsvrc']['train']['data_wait_ms_per_step']:.2f} ms/step, "
+          f"{pp['ilsvrc']['distinct']} train ids once; import logits rel "
+          f"{pim['logits_rel']:.3e}; paths O, P and import "
+          f"{result['paths_o_p_s']:.1f} s", flush=True)
     print(f"[summary] solve G=32 M=1024: lockstep {sv['lockstep_ms']:.3f} ms"
           f", cholesky_ex {sv['cholesky_ex_ms']:.3f} ms, rel "
           f"{sv['lockstep_vs_cholesky_rel']:.3e}", flush=True)

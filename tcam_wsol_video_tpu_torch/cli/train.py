@@ -36,6 +36,11 @@ the test passes in --eval_compute_dtype (default float32); parameters,
 gradients and checkpoints stay float32.  It runs on the card unless
 --device cpu is given; without CUDA it raises.
 
+ILSVRC (ds_chunkable, nbr_chunks, bucket_sz): each epoch trains on the
+train split's buckets in turn; --bucket_stage_cmd / --bucket_cleanup_cmd
+are shell templates ({bucket} substituted) run by `bash -c` before and
+after each bucket.
+
 Several ranks, one process per card (NCCL; gloo under --device cpu):
 
     python -m torch.distributed.run --nproc_per_node N \
@@ -59,6 +64,7 @@ from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.core.config import TCAMConfig, parse_args
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+from tcam_wsol_video_tpu_torch.data import ilsvrc_buckets
 from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
 from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
 from tcam_wsol_video_tpu_torch.data.folds import (load_split_metadata,
@@ -231,6 +237,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     trainer = Trainer(args, model, train_pipe, eval_pipes, keychain=kc,
                       device=device, classifier=classifier, mesh=mesh)
+    if args.ds_chunkable and (args.bucket_stage_cmd
+                              or args.bucket_cleanup_cmd):
+        trainer.bucket_stager = ilsvrc_buckets.shell_stager(
+            args.bucket_stage_cmd, args.bucket_cleanup_cmd)
+        trainer.logger.log(f"bucket stager: stage={args.bucket_stage_cmd!r}"
+                           f" cleanup={args.bucket_cleanup_cmd!r}")
     results = trainer.fit()
     trainer.logger.log({"final": {
         tag: {k: v for k, v in r.items() if isinstance(v, (int, float))}

@@ -1,13 +1,15 @@
 """The hparams keys of the ported slices, and their command line.
 
 Names and defaults are those of the JAX package's core/hparams.py
-`get_config` (YouTube-Objects-v1.0 defaults), so a recipe written for one
-package reads the same in the other, and `parse_args` takes the same
-command line: `--key value` flags (booleans as true/false, lists as
-[a, b]), `--config <yaml>` applied before them, and the reference's
-spellings (`--opt__*` aliases, runtime flags dropped with a warning).
-The keys of modules not ported yet (the demo and visuals, the image
-datasets) are absent: a flag or a yaml key naming one is refused.
+`get_config`, all 216 of them, so a recipe written for one package reads
+the same in the other, and `parse_args` takes the same command line:
+`--key value` flags (booleans as true/false, lists as [a, b]),
+`--config <yaml>` applied before them, and the reference's spellings
+(`--opt__*` aliases, runtime flags dropped with a warning).  TCAMConfig()
+holds the YouTube-Objects-v1.0 defaults; `config_for(dataset)` those of
+any dataset (JAX's get_config(ds): its class count, and ILSVRC's bucketed
+train split).  A key that no module reads is refused: a flag or a yaml
+key naming one.
 The keys that JAX parses and never reads (UNREAD_KEYS) are accepted at
 their defaults only: any other value raises, so that setting one cannot
 seem to change a run.
@@ -27,6 +29,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.data import ilsvrc_buckets
 from tcam_wsol_video_tpu_torch.data.folds import (parse_flat_mapping,
                                                   parse_scalar)
 
@@ -45,7 +48,7 @@ PORTED_TASKS = (constants.STD_CL, constants.F_CL, constants.TCAM,
 UNREAD_KEYS = ("encoder_weights", "in_channels", "scale_in",
                "path_pre_trained", "strict", "seg_mode", "save_dir_models",
                "cb_pretrained_cl_ch_pt", "cb_area_normed", "cb_pp_box_alpha",
-               "cb_seed_bg_z_type")
+               "cb_seed_bg_z_type", "demo_video")
 # the encoders that JAX's models/factory.get_encoder builds
 ENCODER_NAMES = (constants.RESNET50, "resnet101", constants.VGG16,
                  constants.INCEPTIONV3)
@@ -78,6 +81,23 @@ class TCAMConfig:
     checkpoint_save: int = 100
     keep_last_n_checkpoints: int = 1
     log_every: int = 10
+    # the visuals: a CAM-progress grid of plot_tr_cam_progress_n fixed
+    # train frames after each epoch, and the overlays' image weight
+    # (0-255); demo_video is in UNREAD_KEYS
+    plot_tr_cam_progress: bool = False
+    plot_tr_cam_progress_n: int = 4
+    alpha_visu: int = 100
+    demo_video: bool = False
+    # OpenImages' GT-mask tree ("" = under the data root); ILSVRC's train
+    # split in nbr_chunks chunk files grouped in buckets of bucket_sz,
+    # with shell templates run before and after each bucket ({bucket}
+    # substituted; "" = nothing)
+    mask_root: str = ""
+    ds_chunkable: bool = False
+    nbr_chunks: int = -1
+    bucket_sz: int = 8
+    bucket_stage_cmd: str = ""
+    bucket_cleanup_cmd: str = ""
     save_dir_models: str = ""   # UNREAD_KEYS
     # the train data plane (data/pipeline.py, data/device_feed.py):
     # uint8 pixels and packed CAM/ROI planes over host -> device, the
@@ -328,10 +348,30 @@ class TCAMConfig:
         return dataclasses.replace(self, **kw)
 
     @property
+    def nbr_buckets(self) -> int:
+        """The train split's buckets an epoch (1 when not chunkable)."""
+        if not self.ds_chunkable:
+            return 1
+        return ilsvrc_buckets.num_buckets(self.nbr_chunks, self.bucket_sz)
+
+    @property
     def std_cl_method_requires_grad(self) -> bool:
         """Whether the CAM method differentiates the head at eval time
         (JAX's hparams.finalize sets the same key)."""
         return constants.METHOD_REQU_GRAD[self.method]
+
+
+def config_for(dataset: str) -> TCAMConfig:
+    """The defaults of `dataset` (JAX get_config(ds))."""
+    if dataset not in constants.NUMBER_CLASSES:
+        raise ValueError(f"dataset must be one of {constants.DATASETS}, got "
+                         f"{dataset!r}")
+    bucketed = dataset in constants.BUCKETED_DATASETS
+    return TCAMConfig(dataset=dataset,
+                      num_classes=constants.NUMBER_CLASSES[dataset],
+                      ds_chunkable=bucketed,
+                      nbr_chunks=ilsvrc_buckets.NBR_CHUNKS_TR_ILSVRC
+                      if bucketed else -1)
 
 
 def stage1_cam_recipe(**overrides) -> TCAMConfig:
@@ -483,7 +523,7 @@ def read_config_yaml(path: str) -> dict:
     keys = {f.name for f in dataclasses.fields(TCAMConfig)}
     unknown = sorted(str(k) for k in values if k not in keys)
     if unknown:
-        raise ValueError(f"{path}: keys of modules not ported: {unknown}")
+        raise ValueError(f"{path}: unknown keys: {unknown}")
     return values
 
 
@@ -505,7 +545,8 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
                 f"its default {getattr(defaults, key)!r} is accepted, got "
                 f"{getattr(args, key)!r}")
     if args.dataset not in constants.NUMBER_CLASSES:
-        raise ValueError(f"dataset {args.dataset!r} is not ported")
+        raise ValueError(f"dataset must be one of {constants.DATASETS}, got "
+                         f"{args.dataset!r}")
     if args.spatial_pooling not in constants.SPATIAL_POOLINGS:
         raise ValueError(f"spatial_pooling {args.spatial_pooling!r}")
     if args.encoder_name not in ENCODER_NAMES:
@@ -555,6 +596,10 @@ def finalize(args: TCAMConfig) -> TCAMConfig:
     if args.eval_transfer not in EVAL_TRANSFERS:
         raise ValueError(f"eval_transfer must be one of {EVAL_TRANSFERS}, "
                          f"got {args.eval_transfer!r}")
+    # PxAP reads the float CAMs: the uint8 readback is the box protocol's
+    if args.eval_transfer == "uint8" and args.dataset == constants.OpenImages:
+        raise ValueError("eval_transfer uint8 is box-protocol only; "
+                         "OpenImages' PxAP needs float CAMs")
     if args.mesh_mp < 1 or (args.mesh_dp != -1 and args.mesh_dp < 1):
         raise ValueError(f"mesh_dp must be -1 or >= 1 and mesh_mp >= 1, got "
                          f"{args.mesh_dp} x {args.mesh_mp}")
@@ -604,10 +649,7 @@ def parse_args(argv: Optional[Sequence[str]] = None,
     boot.add_argument("--config", type=str, default="",
                       help="optional yaml file applied before the flags")
     ns_boot, rest = boot.parse_known_args(argv)
-    if ns_boot.dataset not in constants.NUMBER_CLASSES:
-        raise ValueError(f"dataset {ns_boot.dataset!r} is not ported")
-    base = TCAMConfig(dataset=ns_boot.dataset,
-                      num_classes=constants.NUMBER_CLASSES[ns_boot.dataset])
+    base = config_for(ns_boot.dataset)
     if ns_boot.config:
         base = base.replace(**read_config_yaml(ns_boot.config))
 

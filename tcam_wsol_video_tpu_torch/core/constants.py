@@ -83,16 +83,25 @@ VGG16 = "vgg16"
 INCEPTIONV3 = "inceptionv3"
 ENCODERS = (RESNET50, VGG16, INCEPTIONV3)
 
-# datasets
+# datasets: three image sets and two video sets; ILSVRC's train split is
+# read in buckets of chunk files (data/ilsvrc_buckets.py); OpenImages is
+# scored by PxAP over GT masks
+CUB = "CUB"
+ILSVRC = "ILSVRC"
+OpenImages = "OpenImages"
 YTOV1 = "YouTube-Objects-v1.0"
 YTOV22 = "YouTube-Objects-v2.2"
-NUMBER_CLASSES = {YTOV1: 10, YTOV22: 10}
+DATASETS = (CUB, ILSVRC, OpenImages, YTOV1, YTOV22)
+NUMBER_CLASSES = {CUB: 200, ILSVRC: 1000, OpenImages: 100, YTOV1: 10,
+                  YTOV22: 10}
 VIDEO_DATASETS = (YTOV1, YTOV22)
+BUCKETED_DATASETS = (ILSVRC,)
 
 # splits
 TRAINSET = "train"
 VALIDSET = "val"
 TESTSET = "test"
+TESTSET_VIDEO_DEMO = "test-video-demo"
 
 CROP_SIZE = 224
 RESIZE_SIZE = 256

@@ -3,6 +3,8 @@
     fastloader  native/fastloader.cpp  (libjpeg decode, resize, crop, flip)
     boxsweep    native/boxsweep.cpp    (all-threshold contour-box sweep)
     jpeg_write  csrc/jpeg_write.cpp    (libjpeg JPEG writer)
+    contours    csrc/contours.cpp      (border following, cv2's contours)
+    bilateral_grid  native/bilateral_grid.cpp  (CPU bilateral filter)
 
 Each is compiled by g++ with the JAX package's flags (-O3 -march=native
 -fopenmp -shared -fPIC), so that both packages' libraries compute the same
@@ -34,6 +36,10 @@ LIBS = {
     "boxsweep": (os.path.join(_REPO, "native", "boxsweep.cpp"), []),
     "jpeg_write": (os.path.join(_REPO, "tcam_wsol_video_tpu_torch", "csrc",
                                 "jpeg_write.cpp"), ["-ljpeg"]),
+    "contours": (os.path.join(_REPO, "tcam_wsol_video_tpu_torch", "csrc",
+                              "contours.cpp"), []),
+    "bilateral_grid": (os.path.join(_REPO, "native", "bilateral_grid.cpp"),
+                       []),
 }
 
 

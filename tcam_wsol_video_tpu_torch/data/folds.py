@@ -3,14 +3,16 @@
 Per split, the wsol-done-right text files: image_ids.txt (one relative
 path per line; image_ids_proxy.txt for the proxy train subset),
 class_labels.txt (`id,label`), image_sizes.txt (`id,w,h`) and
-localization.txt (`id,x0,y0,x1,y1`, one line per box), plus class_id.yaml
-at the folds root.  class_id.yaml is a flat `name: id` mapping, read here
+localization.txt (`id,x0,y0,x1,y1`, one line per box; OpenImages writes
+`id,mask path` rows instead, one per GT mask), plus class_id.yaml at the
+folds root.  class_id.yaml is a flat `name: id` mapping, read here
 without a YAML library (`parse_flat_mapping`, which also reads the flat
 recipe yamls of config_yaml/), in block form (one `name: id` per line) or
 flow form (`{a: 0, b: 1}`).
 """
 from __future__ import annotations
 
+import json
 import os
 import re
 from dataclasses import dataclass, field
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tcam_wsol_video_tpu_torch.data import png
 from tcam_wsol_video_tpu_torch.ops.boxes import resize_bbox
 
 
@@ -209,9 +212,60 @@ def parse_flat_mapping(text: str) -> Dict:
     return out
 
 
+def _yaml_scalar(v) -> str:
+    """One scalar as text that safe_load reads back as the same value."""
+    if isinstance(v, bool) or v is None:
+        return {True: "true", False: "false", None: "null"}[v]
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        f = float(v)
+        if f != f:
+            return ".nan"
+        if f in (float("inf"), float("-inf")):
+            return ".inf" if f > 0 else "-.inf"
+        text = repr(f)
+        # YAML 1.1 reads a float only with a dot and a signed exponent
+        if "e" in text and "." not in text:
+            text = text.replace("e", ".0e")
+        return text
+    if isinstance(v, str):
+        return json.dumps(v)
+    raise TypeError(f"not a scalar: {v!r}")
+
+
+def dump_flat_mapping(mapping: Dict) -> str:
+    """A mapping of scalars or lists of scalars as block YAML, keys sorted
+    as PyYAML's safe_dump sorts them; the lists in flow form.  The
+    inverse that safe_load reads."""
+    lines = []
+    for k in sorted(mapping):
+        v = mapping[k]
+        if isinstance(v, (list, tuple, np.ndarray)):
+            text = "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+        else:
+            text = _yaml_scalar(v)
+        lines.append(f"{_yaml_scalar(k)}: {text}\n")
+    return "".join(lines) if lines else "{}\n"
+
+
 def load_class_ids(metadata_root: str) -> Dict[str, int]:
     with open(os.path.join(metadata_root, "class_id.yaml")) as f:
         return parse_flat_mapping(f.read())
+
+
+def load_gt_mask(md: SplitMetadata, mask_root: str, image_id: str,
+                 size: int) -> np.ndarray:
+    """The union of an image's GT masks (OpenImages' PxAP) at (size,
+    size), float32 0 / 1: each PNG to luma and NEAREST-resized as Pillow
+    does (data/png.py), then > 127."""
+    out = np.zeros((size, size), np.float32)
+    for rel in md.mask_paths.get(image_id, []):
+        px, mode, palette = png.read_png(os.path.join(mask_root, rel))
+        m = png.resize_nearest(png.to_luma(px, mode, palette), (size, size))
+        out = np.maximum(out, (m.astype(np.float32) > 127).astype(
+            np.float32))
+    return out
 
 
 def subsample_per_class(md: SplitMetadata, n_per_class: int,

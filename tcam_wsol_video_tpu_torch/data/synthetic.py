@@ -35,7 +35,31 @@ def _jpeg_write_lib() -> ctypes.CDLL:
     lib.write_jpeg_rgb.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.write_jpeg_rgb.restype = ctypes.c_int
+    lib.encode_jpeg_rgb.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+    lib.encode_jpeg_rgb.restype = ctypes.c_int
     return lib
+
+
+def encode_jpeg(img: np.ndarray, device="cuda",
+                quality: int = JPEG_QUALITY) -> bytes:
+    """(h, w, 3) uint8 RGB -> baseline JPEG bytes, by the device's codec
+    (libjpeg for a CPU device, nvJPEG on the card)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, _ = img.shape
+    if torch.device(device).type != "cpu":
+        from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+        return nvjpeg_loader.encode(img, quality, device)
+    cap = 2 * img.size + 65536
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_size_t()
+    rc = _jpeg_write_lib().encode_jpeg_rgb(img.ctypes.data, h, w, quality,
+                                           out.ctypes.data, cap,
+                                           ctypes.byref(n))
+    if rc != 0:
+        raise IOError(f"libjpeg could not encode a {h}x{w} frame ({rc})")
+    return out[:n.value].tobytes()
 
 
 def write_jpeg(path: str, img: np.ndarray, device="cuda",

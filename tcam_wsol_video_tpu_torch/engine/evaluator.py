@@ -6,7 +6,17 @@ CAM of each image's label class); the exact all-threshold box sweep then
 scores every valid image against its GT boxes, and BoxEvaluator counts
 MaxBoxAcc at each IoU threshold.  Classification counts the top-1
 prediction of every valid image.  Validation above 1000 samples sweeps the
-coarse tau grid.
+coarse tau grid.  The box protocol is multi_contour_eval's: every contour
+(the native sweep, or the device sweep below) or the single largest one
+(metrics/wsol.scoremap_to_boxes over the CAMs read back, the images of a
+batch in threads).  OpenImages is scored by PxAP instead
+(MaskEvaluator against the GT masks that data/folds.load_gt_mask reads
+under mask_root, else the data root), as JAX's route does.
+
+With visual_dump_dir, the first visual_dump_n valid images (their raw
+pixels, CAM and GT boxes) are kept, and after the pass
+viz/wsol_viz.ordered_prediction_sheets writes their sheets at the best
+taus there.
 
 The knobs, with JAX's defaults and meaning:
 - eval_sweep: where the exact sweep runs.  `host` (native/boxsweep.cpp
@@ -44,6 +54,7 @@ gates them.
 from __future__ import annotations
 
 import collections
+import concurrent.futures as cf
 import logging
 import time
 import weakref
@@ -60,7 +71,9 @@ from tcam_wsol_video_tpu_torch.engine.steps import (dequantize_cams_np,
                                                     make_cam_eval_step)
 from tcam_wsol_video_tpu_torch.metrics import (device_eval, device_sweep,
                                                native_sweep)
-from tcam_wsol_video_tpu_torch.metrics.wsol import BoxEvaluator
+from tcam_wsol_video_tpu_torch.metrics.wsol import (BoxEvaluator,
+                                                    MaskEvaluator,
+                                                    scoremap_to_boxes)
 from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
@@ -89,12 +102,15 @@ class CamEvaluator:
                  fast: bool = False, max_gt_boxes: int = 8,
                  generator: Optional[torch.Generator] = None,
                  on_device: Optional[bool] = None, classifier=None,
-                 mesh: Optional[pmesh.Mesh] = None):
+                 mesh: Optional[pmesh.Mesh] = None,
+                 visual_dump_dir: str = "", visual_dump_n: int = 16):
         """generator: the noise of the CAM methods that draw it
         (SmoothGradCAM++, SSCAM), on the pipeline's device.  on_device:
         the approximate device counters (default args.on_device_eval).
         classifier: C_BOX's frozen classifier (required there).  mesh:
-        the process mesh whose dp group sums the counters."""
+        the process mesh whose dp group sums the counters.
+        visual_dump_dir: where the prediction sheets of the first
+        visual_dump_n images go ("" = none)."""
         self.model = model
         self.mesh = mesh
         self.generator = generator
@@ -113,9 +129,16 @@ class CamEvaluator:
             getattr(args, "on_device_eval", False) if on_device is None
             else on_device)
         # 'auto' is JAX's device sweep on a TPU backend only
+        self.masks = (args.dataset == constants.OpenImages
+                      and bool(dataset.md.mask_paths))
         self.use_dev_sweep = (
-            not self.on_device and not self.cbox and args.multi_contour_eval
+            not self.on_device and not self.cbox and not self.masks
+            and args.multi_contour_eval
             and str(getattr(args, "eval_sweep", "auto")) == "device")
+        self.visual_dump_dir = visual_dump_dir
+        self.visual_dump_n = visual_dump_n
+        # (image_id, raw (c, c, 3), cam (c, c), gt boxes)
+        self._visuals: list = []
         self._sweep_fallbacks = 0   # images swept on the host by the cap
         self._sweep_seen = 0        # images through the device sweep
         self._sweep_disabled = False
@@ -144,14 +167,44 @@ class CamEvaluator:
 
     def _prep(self, batch: dict) -> tuple:
         """(pixels, labels, valid, raw or None, gt boxes, gt mask, image
-        ids): a compact batch (h2d_transfer=uint8) holds uint8 pixels only,
-        which the step normalizes and takes as the raw image."""
+        ids, raw pixels for the visuals or None): a compact batch
+        (h2d_transfer=uint8) holds uint8 pixels only, which the step
+        normalizes and takes as the raw image."""
         raw = (batch["raw_img"] if self.args.crf_post_process
                and "raw_img" in batch else None)
         gt_boxes, gt_valid = self._gt_batch(batch["image_id"])
+        vis = (batch.get("raw_img", batch.get("raw_u8"))
+               if self._wants_visuals() else None)
         return (batch.get("raw_u8", batch.get("image")), batch["label"],
                 batch["valid"], raw, gt_boxes, gt_valid,
-                list(batch["image_id"]))
+                list(batch["image_id"]), vis)
+
+    def _wants_visuals(self) -> bool:
+        return (bool(self.visual_dump_dir) and not self.on_device
+                and len(self._visuals) < self.visual_dump_n)
+
+    def _collect_visuals(self, idxs, ids, vis, cams_np, gt_boxes,
+                         gt_valid) -> None:
+        """Keeps the first visual_dump_n valid images of the pass."""
+        if vis is None or cams_np is None:
+            return
+        for i in idxs:
+            if len(self._visuals) >= self.visual_dump_n:
+                return
+            self._visuals.append(
+                (ids[i], vis[i].float().cpu().numpy(), cams_np[i],
+                 gt_boxes[i][gt_valid[i]]))
+
+    def _dump_visuals(self, evaluator: BoxEvaluator) -> None:
+        if not (self.visual_dump_dir and self._visuals):
+            return
+        from tcam_wsol_video_tpu_torch.viz.wsol_viz import \
+            ordered_prediction_sheets
+        ordered_prediction_sheets(
+            self._visuals, evaluator.best_tau_list,
+            self.args.iou_threshold_list, self.args.multi_contour_eval,
+            self.visual_dump_dir,
+            alpha=getattr(self.args, "alpha_visu", 153) / 255.0)
 
     def run(self) -> Dict:
         """Scores the split.  Returns maxboxacc_<s>, localization,
@@ -162,12 +215,16 @@ class CamEvaluator:
         sweep sweep_fallbacks."""
         if self.cbox:
             return self._run_boxes()
+        if self.masks:
+            return self._run_masks()
         args = self.args
         evaluator = BoxEvaluator(self.taus, args.iou_threshold_list,
                                  multi_contour_eval=args.multi_contour_eval)
         sigmas100 = tuple(int(s) for s in args.iou_threshold_list)
         depth = max(1, int(getattr(args, "eval_pipeline_depth", 8)))
-        cache_ok = bool(getattr(args, "eval_device_cache", False))
+        # the visuals need the raw pixels of the pass: no replay
+        cache_ok = (bool(getattr(args, "eval_device_cache", False))
+                    and not self.visual_dump_dir)
         cached = _DEVICE_EVAL_CACHE.get(self.pipe) if cache_ok else None
         budget = int(getattr(args, "eval_device_cache_mb", 1024)) << 20
         rec = {"on": cache_ok and cached is None, "bytes": 0, "items": []}
@@ -192,7 +249,7 @@ class CamEvaluator:
                 yield item
 
         def dispatch(item) -> tuple:
-            images, labels, valid, raw, gt_boxes, gt_valid, ids = item
+            images, labels, valid, raw, gt_boxes, gt_valid, ids, vis = item
             begin = clock.start()
             cams, logits = self.eval_step(images, raw, targets=labels,
                                           generator=self.generator)
@@ -212,10 +269,11 @@ class CamEvaluator:
             if images.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record()
-            return host, event, cams if sweep else None, gt_boxes, gt_valid
+            return (host, event, cams if sweep else None, gt_boxes, gt_valid,
+                    ids, vis)
 
         def process(handle) -> None:
-            host, event, cams_dev, gt_boxes, gt_valid = handle
+            host, event, cams_dev, gt_boxes, gt_valid, ids, vis = handle
             if event is not None:
                 event.synchronize()
             logits_np = host["logits"].float().numpy()
@@ -230,16 +288,35 @@ class CamEvaluator:
             if "hits" in host:
                 self._process_sweep(host, cams_dev, idxs, labels, preds,
                                     gt_boxes, gt_valid, evaluator, counts)
+                if vis is not None:
+                    self._collect_visuals(
+                        idxs, ids, vis,
+                        dequantize_cams_np(cams_dev.cpu().numpy()),
+                        gt_boxes, gt_valid)
                 return
             cams_np = dequantize_cams_np(host["cams"].numpy())
             t0 = time.perf_counter()
-            best, _ = native_sweep.sweep_best_iou(
-                cams_np[idxs], evaluator.cam_threshold_list,
-                [gt_boxes[i][gt_valid[i]] for i in idxs])
+            if evaluator.multi_contour_eval:
+                best, _ = native_sweep.sweep_best_iou(
+                    cams_np[idxs], evaluator.cam_threshold_list,
+                    [gt_boxes[i][gt_valid[i]] for i in idxs])
+                for j, i in enumerate(idxs):
+                    evaluator.accumulate_best_iou(best[j], int(labels[i]),
+                                                  preds[i])
+            else:
+                # the tracer releases the GIL: a batch's images in threads
+                taus = evaluator.cam_threshold_list
+                with cf.ThreadPoolExecutor(min(8, len(idxs))) as pool:
+                    swept = list(pool.map(
+                        lambda i: scoremap_to_boxes(cams_np[i], taus, False),
+                        idxs))
+                for i, boxes in zip(idxs, swept):
+                    evaluator.accumulate(None, gt_boxes[i][gt_valid[i]],
+                                         int(labels[i]), preds[i],
+                                         precomputed=boxes)
             counts["sweep_s"] += time.perf_counter() - t0
-            for j, i in enumerate(idxs):
-                evaluator.accumulate_best_iou(best[j], int(labels[i]),
-                                              preds[i])
+            self._collect_visuals(idxs, ids, vis, cams_np, gt_boxes,
+                                  gt_valid)
 
         t_start = time.perf_counter()
         inflight: collections.deque = collections.deque()
@@ -269,6 +346,8 @@ class CamEvaluator:
         if self.use_dev_sweep:
             out["sweep_fallbacks"] = self._sweep_fallbacks
         out.update(self._totals(out, counts["correct"], n_total))
+        if not self.on_device:
+            self._dump_visuals(evaluator)
         out["timing"] = {
             "seconds": wall, "batches": len(forward_ms),
             "forward_ms_per_batch": float(np.median(forward_ms))
@@ -344,7 +423,7 @@ class CamEvaluator:
         n_correct = n_total = 0
         t_start = time.perf_counter()
         for batch in self.pipe.epoch(0):
-            images, labels, valid, _, gt_boxes, gt_valid, _ = \
+            images, labels, valid, _, gt_boxes, gt_valid, _, _ = \
                 self._prep(batch)
             begin = clock.start()
             boxes, box_valid, logits = self.eval_step(images)
@@ -374,6 +453,54 @@ class CamEvaluator:
             "images_per_s": n_total / wall, "sweep": "bbox",
             "pipeline_depth": 1, "device_cache": "off"}
         return out
+
+    def _run_masks(self) -> Dict:
+        """PxAP (OpenImages): each valid image's CAM against the union of
+        its GT masks at the crop size, one batch at a time; the
+        histograms and the classification counts summed over the dp
+        group."""
+        from tcam_wsol_video_tpu_torch.data.folds import load_gt_mask
+        ev = MaskEvaluator(list(self.taus))
+        mroot = getattr(self.args, "mask_root", "") or self.ds.data_root
+        clock = SpanClock(self.pipe.device)
+        n_correct = n_total = 0
+        t_start = time.perf_counter()
+        masks_s = 0.0
+        for batch in self.pipe.epoch(0):
+            images, labels, valid, raw, _, _, ids, _ = self._prep(batch)
+            begin = clock.start()
+            cams, logits = self.eval_step(images, raw, targets=labels,
+                                          generator=self.generator)
+            clock.stop(begin)
+            cams_np = dequantize_cams_np(cams.cpu().numpy())
+            logits_np = logits.float().cpu().numpy()
+            labels, valid = labels.cpu().numpy(), valid.cpu().numpy()
+            preds = np.argsort(-logits_np, axis=-1, kind="stable")
+            n_correct += int(((preds[:, 0] == labels) & valid).sum())
+            n_total += int(valid.sum())
+            t0 = time.perf_counter()
+            for i in np.flatnonzero(valid):
+                ev.accumulate(cams_np[i], load_gt_mask(
+                    self.ds.md, mroot, ids[i], self.args.crop_size))
+            masks_s += time.perf_counter() - t0
+        wall = time.perf_counter() - t_start
+        forward_ms = clock.millis()
+        ev.reduce_across_devices(self.mesh, self.pipe.device)
+        n_correct, n_total = (int(v) for v in pmesh.psum_across(
+            np.asarray([n_correct, n_total], np.float64), self.mesh,
+            device=self.pipe.device))
+        pxap = ev.compute()
+        return {
+            "pxap": pxap, "localization": pxap,
+            "classification": 100.0 * n_correct / max(n_total, 1),
+            "n_images": n_total,
+            "timing": {
+                "seconds": wall, "batches": len(forward_ms),
+                "forward_ms_per_batch": float(np.median(forward_ms))
+                if forward_ms else 0.0,
+                "sweep_ms_per_image": 1e3 * masks_s / max(n_total, 1),
+                "images_per_s": n_total / wall, "sweep": "pxap",
+                "pipeline_depth": 1, "device_cache": "off"}}
 
     def _device_counters(self, cams, gt_boxes, gt_valid, valid, dev) -> None:
         """on_device: the batch's approximate counters, summed on the

@@ -35,6 +35,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from tcam_wsol_video_tpu_torch.cams.seeding import gumbel_noise
@@ -112,8 +113,13 @@ class ChunkedEpochRunner:
     # ------------------------------------------------------------ epochs
     def run_epoch(self, state: TrainState, epoch: int, keychain, switches,
                   seed_weighted: bool,
-                  on_chunk: Optional[Callable] = None) -> Dict:
-        """Trains one epoch.  on_chunk(offset, k, metrics) after each chunk
+                  on_chunk: Optional[Callable] = None,
+                  subset: Optional[np.ndarray] = None,
+                  key_offset: int = 0) -> Dict:
+        """Trains one epoch (of the dataset indices `subset`, all when
+        None; its step i draws the keys of step key_offset + i, so a
+        bucketed epoch's keys run on across its buckets as the per-step
+        loop's do).  on_chunk(offset, k, metrics) after each chunk
         (state.step already advanced by k).  Returns the epoch's record:
         steps, per-step metrics (device tensors), the chunk spans (CUDA
         events on the card, the host clock on the CPU), the host's ms to
@@ -122,7 +128,7 @@ class ChunkedEpochRunner:
         host ms."""
         feed = self.feed
         t0 = time.perf_counter()
-        plan, all_ids, t_heat = feed.epoch_plan(epoch)
+        plan, all_ids, t_heat = feed.epoch_plan(epoch, subset)
         n = len(all_ids)
         rec = {"steps": n, "metrics": [], "chunk_ms": [], "chunk_k": [],
                "enqueue_ms": [], "capture_ms": [], "plan_ms": 0.0}
@@ -147,12 +153,12 @@ class ChunkedEpochRunner:
                 # the warm-up runs on the chunk's inputs; the fill below
                 # seeds the generators again after it
                 t_cap = time.perf_counter()
-                self._fill(dev_plan, done, k, keychain, epoch)
+                self._fill(dev_plan, done, k, keychain, epoch, key_offset)
                 graphs[k] = self._capture(state, k, switches, seed_weighted,
                                           t_heat)
                 rec["capture_ms"].append((time.perf_counter() - t_cap) * 1e3)
             t_host = time.perf_counter()
-            self._fill(dev_plan, done, k, keychain, epoch)
+            self._fill(dev_plan, done, k, keychain, epoch, key_offset)
             if self.cuda:
                 begin = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -178,14 +184,14 @@ class ChunkedEpochRunner:
         return rec
 
     def _fill(self, dev_plan, start: int, k: int, keychain,
-              epoch: int) -> None:
+              epoch: int, key_offset: int = 0) -> None:
         """The chunk's static inputs: its plan rows, each step's seeder
         noise (the first draw of KeyChain('train', epoch, i), as the step
         would draw it) and its dropout seed."""
         for name, v in dev_plan.items():
             self._static[name][:k].copy_(v[start:start + k])
         for j in range(k):
-            i = start + j
+            i = key_offset + start + j
             if self._gumbel is not None:
                 self._gumbel[j].copy_(gumbel_noise(
                     self._gumbel.shape[1:],

@@ -339,6 +339,7 @@ def make_cam_eval_step(model, args):
     use_crf_pp = bool(args.crf_post_process)
     dtype = DTYPES[args.eval_compute_dtype]
     transfer = str(getattr(args, "eval_transfer", "float32"))
+    box_protocol = args.dataset != constants.OpenImages
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor,
@@ -368,17 +369,20 @@ def make_cam_eval_step(model, args):
             cam = mean_field_refine(raw_images, probs,
                                     num_iters=args.crf_pp_iters)[..., 1]
             cam = torch.nan_to_num(cam).clamp(0.0, 1.0)
-        return pack_cams(cam, transfer), out["cl_logits"]
+        return pack_cams(cam, transfer, box_protocol), out["cl_logits"]
 
     return eval_step
 
 
-def pack_cams(cam: torch.Tensor, transfer: str) -> torch.Tensor:
+def pack_cams(cam: torch.Tensor, transfer: str,
+              box_protocol: bool = True) -> torch.Tensor:
     """CAMs in [0, 1] in the eval_transfer dtype (JAX make_cam_eval_step's
-    tail, box protocol): uint16 round(floor(cam 255) / 255 65535), uint8
-    floor(cam 255), float32 unchanged."""
+    tail): uint16 round(floor(cam 255) / 255 65535) for the box protocol,
+    round(cam 65535) for PxAP (OpenImages, which reads the float CAM),
+    uint8 floor(cam 255), float32 unchanged."""
     if transfer == "uint16":
-        cam = torch.floor(cam * 255.0) / 255.0
+        if box_protocol:
+            cam = torch.floor(cam * 255.0) / 255.0
         return torch.round(cam * 65535.0).to(torch.int32).to(torch.uint16)
     if transfer == "uint8":
         return torch.floor(cam * 255.0).to(torch.uint8)

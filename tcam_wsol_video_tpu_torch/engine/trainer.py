@@ -43,6 +43,20 @@ minimum box sizes come from the val split's GT boxes
 (data/folds.build_size_priors).  Its epoch records add the share of
 valid boxes, and its evaluations score the predicted boxes.
 
+ILSVRC (ds_chunkable): an epoch trains on the nbr_buckets buckets of the
+train split in turn (data/ilsvrc_buckets.py: each bucket the ids of its
+chunk files), between the stage and cleanup commands of an attached
+bucket_stager; the step keys run on across the buckets, as in JAX.
+
+The visuals (rank 0; JAX's hooks): with plot_tr_cam_progress, after each
+epoch the CAMs of plot_tr_cam_progress_n fixed train frames (the first
+train ids' frames of the first plotted epoch, at the eval geometry) go to
+progress/epoch_<e>.png; the test passes of `fit` dump the prediction
+sheets under visuals/test/ and write best_tau_test_<snapshot>.yaml and
+boxacc_test_<snapshot>.png; dump_performances writes performances.json,
+.pkl, .txt and the meters' curves (performances.png).  A failure in
+these host files is logged, never raised: training goes on, as in JAX.
+
 Several ranks (torch.distributed, one process per device; JAX's
 multi-process branch): the trainer makes the (mesh_dp, mesh_mp) mesh
 (parallel/mesh.py) and hands it to the steps and the evaluator, shards
@@ -61,6 +75,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import pickle
 import time
 from typing import Dict, List, Optional
 
@@ -76,17 +91,22 @@ from tcam_wsol_video_tpu_torch.core.clock import SpanClock
 from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS, experiment_tag
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
-from tcam_wsol_video_tpu_torch.data.folds import build_size_priors
+from tcam_wsol_video_tpu_torch.data import ilsvrc_buckets
+from tcam_wsol_video_tpu_torch.data.folds import (build_size_priors,
+                                                  dump_flat_mapping)
 from tcam_wsol_video_tpu_torch.engine.cbox_steps import make_cbox_train_step
 from tcam_wsol_video_tpu_torch.engine.evaluator import CamEvaluator
 from tcam_wsol_video_tpu_torch.engine.lr import build_lr_fn
 from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer, set_lr
 from tcam_wsol_video_tpu_torch.engine import scan_train
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
-from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
+from tcam_wsol_video_tpu_torch.engine.steps import (dequantize_cams_np,
+                                                    make_cam_eval_step,
+                                                    make_train_step)
 from tcam_wsol_video_tpu_torch.losses.build import get_loss
 from tcam_wsol_video_tpu_torch.losses.elb import update_t
 from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
+from tcam_wsol_video_tpu_torch.viz import wsol_viz
 
 
 class PerformanceMeter:
@@ -191,6 +211,11 @@ class Trainer:
         self.best_cl_state: Optional[dict] = None
         self.student_reloads = 0
         self.records: Dict[str, list] = {"train": [], "eval": []}
+        # ILSVRC: a BucketStager run around each bucket (the train CLI
+        # attaches one), and the train ids' dataset indices
+        self.bucket_stager: Optional[ilsvrc_buckets.BucketStager] = None
+        self._id_to_index: Optional[Dict[str, int]] = None
+        self._progress: Optional[tuple] = None
         self.outd = os.path.join(args.outd, experiment_tag(args),
                                  args.exp_id)
         if self.is_master:
@@ -202,6 +227,39 @@ class Trainer:
                 f"{self.mesh.backend}" + (
                     "; the card-resident feed and the chunked dispatch are "
                     "off across processes" if self.mesh.world > 1 else ""))
+
+    # ------------------------------------------------------------ buckets
+    def _train_buckets(self):
+        """This epoch's buckets, staged when a stager is attached; [None]
+        when the train split is not chunked."""
+        if not self.args.ds_chunkable:
+            yield None
+            return
+        buckets = range(self.args.nbr_buckets)
+        yield from (self.bucket_stager(buckets)
+                    if self.bucket_stager is not None else buckets)
+
+    def _bucket_subset(self, bucket) -> Optional[np.ndarray]:
+        """The train dataset's indices of one bucket's ids."""
+        if bucket is None:
+            return None
+        ids = ilsvrc_buckets.bucket_image_ids(
+            self.args.metadata_root, bucket, self.args.nbr_chunks,
+            self.args.bucket_sz)
+        if self._id_to_index is None:
+            train_ids = self.train_pipe.ds.md.image_ids
+            self._id_to_index = {iid: i for i, iid in enumerate(train_ids)}
+        subset = np.asarray([self._id_to_index[i] for i in ids
+                             if i in self._id_to_index], np.int64)
+        if not subset.size:
+            raise ValueError(f"bucket {bucket} matched no training ids")
+        return subset
+
+    def _epoch_batches(self, epoch: int):
+        """The epoch's train batches, bucket after bucket."""
+        for bucket in self._train_buckets():
+            yield from self.train_pipe.epoch(
+                epoch, subset=self._bucket_subset(bucket))
 
     # -------------------------------------------------------------- train
     def _size_priors_min_s(self) -> Optional[np.ndarray]:
@@ -296,6 +354,8 @@ class Trainer:
                                     args.elb_max_t)
         if args.checkpoint_save > 0:
             self._save_checkpoint()
+        if self.is_master and args.plot_tr_cam_progress:
+            self._plot_progress(epoch)
         out = {
             "epoch": epoch,
             "loss": float(tot_loss) / max(1, i),
@@ -354,7 +414,7 @@ class Trainer:
         wait_ms: List[float] = []
         enqueue_ms: List[float] = []
         out: List[dict] = []
-        batches = iter(self.train_pipe.epoch(epoch))
+        batches = self._epoch_batches(epoch)
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -409,8 +469,20 @@ class Trainer:
                     > (self.state.step - k) // args.checkpoint_save):
                 self._save_checkpoint()
 
-        rec = runner.run_epoch(self.state, epoch, self.kc, switches,
-                               seed_weighted, on_chunk=on_chunk)
+        rec = None
+        for bucket in self._train_buckets():
+            part = runner.run_epoch(
+                self.state, epoch, self.kc, switches, seed_weighted,
+                on_chunk=on_chunk, subset=self._bucket_subset(bucket),
+                key_offset=0 if rec is None else rec["steps"])
+            if rec is None:
+                rec = part
+                continue
+            rec["steps"] += part["steps"]
+            rec["plan_ms"] += part["plan_ms"]
+            for k in ("metrics", "chunk_ms", "chunk_k", "enqueue_ms",
+                      "capture_ms"):
+                rec[k] += part[k]
         if args.log_every:
             for i, m in enumerate(rec["metrics"]):
                 if (i + 1) % args.log_every == 0:
@@ -428,12 +500,16 @@ class Trainer:
 
     # --------------------------------------------------------------- eval
     def evaluate(self, epoch: int, split: str, snapshot: str = "",
-                 on_device: Optional[bool] = None) -> Dict:
+                 on_device: Optional[bool] = None,
+                 visual_dump: bool = False) -> Dict:
         """One pass over `split`; `snapshot` names the weights in the
         record (the test passes at the best snapshots).  on_device: the
         approximate device counters (default args.on_device_eval, as the
-        JAX trainer's every pass)."""
+        JAX trainer's every pass).  visual_dump: the prediction sheets
+        under visuals/<split> (rank 0)."""
         ds, pipe = self.eval_pipes[split]
+        vis_dir = (os.path.join(self.outd, "visuals", split)
+                   if visual_dump and self.is_master else "")
         res = CamEvaluator(
             self.model, self.args, ds, pipe, split,
             fast=self.args.fast_eval,
@@ -441,7 +517,7 @@ class Trainer:
                                   device=self.device),
             on_device=on_device,
             classifier=self.classifier if self.cbox else None,
-            mesh=self.mesh).run()
+            mesh=self.mesh, visual_dump_dir=vis_dir).run()
         rec = {"split": split, "epoch": epoch, "snapshot": snapshot,
                **{k: v for k, v in res.items()
                   if isinstance(v, (int, float))}, **res["timing"]}
@@ -542,7 +618,10 @@ class Trainer:
                 continue
             self.model.load_state_dict(snap)
             results[tag] = self.evaluate(self.args.max_epochs,
-                                         constants.TESTSET, snapshot=tag)
+                                         constants.TESTSET, snapshot=tag,
+                                         visual_dump=True)
+            self.dump_eval_artifacts(f"{constants.TESTSET}_{tag}",
+                                     results[tag])
         self.model.load_state_dict(current)
         self.dump_performances(results)
         return results
@@ -561,3 +640,69 @@ class Trainer:
                      for tag, r in results.items()}}
         with open(os.path.join(self.outd, "performances.json"), "w") as f:
             json.dump(payload, f, indent=1)
+        hist = {k: m.history for k, m in self.meters.items()}
+        best = {k: {"value": m.best_value, "epoch": m.best_epoch}
+                for k, m in self.meters.items()}
+        with open(os.path.join(self.outd, "performances.pkl"), "wb") as f:
+            pickle.dump({"history": hist, "best": best}, f)
+        with open(os.path.join(self.outd, "performances.txt"), "w") as f:
+            for k, m in self.meters.items():
+                f.write(f"{k}: best={m.best_value} @ep{m.best_epoch} "
+                        f"history={m.history}\n")
+        self._host_file("performances.png", lambda path: (
+            wsol_viz.plot_meter_curves(hist, path)))
+
+    def _host_file(self, name: str, write) -> None:
+        """write(path) for a visual under outd; a failure is logged and
+        training goes on (JAX's rule for its plots)."""
+        path = os.path.join(self.outd, name)
+        try:
+            write(path)
+        except Exception as e:  # noqa: BLE001 - a plot never kills a run
+            self.logger.log(f"could not write {path}: {e!r}")
+
+    def dump_eval_artifacts(self, split: str, res: Dict) -> None:
+        """best_tau_<split>.yaml and the BoxAcc-against-tau curves
+        boxacc_<split>.png (rank 0)."""
+        if not self.is_master:
+            return
+        if "best_tau" in res:
+            with open(os.path.join(self.outd, f"best_tau_{split}.yaml"),
+                      "w") as f:
+                f.write(dump_flat_mapping(
+                    {"iou_thresholds": list(self.args.iou_threshold_list),
+                     "best_tau": list(res["best_tau"])}))
+        curves = res.get("curves")
+        if curves:
+            self._host_file(f"boxacc_{split}.png", lambda path: (
+                wsol_viz.plot_boxacc_curves(curves["x"], curves, path)))
+
+    def _plot_progress(self, epoch: int) -> None:
+        """progress/epoch_<e>.png: the CAMs of the fixed train frames
+        under the current weights."""
+        def write(path):
+            if self._progress is None:
+                ds = self.train_pipe.ds
+                n = min(self.args.plot_tr_cam_progress_n, len(ds))
+                fids = [ds.sample_ids(i)[0] for i in range(n)]
+                labels = [ds.md.labels[ds.md.image_ids[i]]
+                          for i in range(n)]
+                c = ds.crop_size
+                norm, raw = self.train_pipe._load_pixels(
+                    [f"{ds.data_root}/{f}" for f in fids], c, c, [0] * n,
+                    [0] * n, [0] * n)
+                self._progress = (
+                    norm, raw.float().cpu().numpy(),
+                    torch.as_tensor(labels, dtype=torch.int64,
+                                    device=norm.device),
+                    make_cam_eval_step(self.model, self.args))
+            norm, raw, labels, step = self._progress
+            cams, _ = step(norm, targets=labels,
+                           generator=self.kc.key("progress", epoch,
+                                                 device=self.device))
+            wsol_viz.plot_progress_grid(
+                list(raw), list(dequantize_cams_np(cams.cpu().numpy())),
+                path, epoch)
+
+        self._host_file(os.path.join("progress", f"epoch_{epoch:04d}.png"),
+                        write)

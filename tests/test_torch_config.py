@@ -116,11 +116,21 @@ def test_yaml_values_keep_their_yaml_type(tmp_path):
 
 
 def test_yaml_keys_of_unported_modules_are_refused(tmp_path):
-    # C_BOX's yaml and the mesh keys are ported now; the image datasets'
-    # bucket_sz is not
+    """Every JAX key is ported now: the image datasets' bucket keys parse
+    from a yaml and from flags as JAX parses them; a key JAX lacks is
+    still refused."""
     path = tmp_path / "buckets.yaml"
-    path.write_text("task: TCAM\narch: UnetTCAM\nbucket_sz: 4\n")
-    with pytest.raises(ValueError, match="not ported"):
+    path.write_text("task: TCAM\narch: UnetTCAM\nbucket_sz: 4\n"
+                    "ds_chunkable: yes\nnbr_chunks: 6\n"
+                    "bucket_stage_cmd: touch {bucket}\n")
+    got = _assert_parse_equal(["--config", str(path)])
+    assert (got.bucket_sz, got.ds_chunkable, got.nbr_chunks,
+            got.nbr_buckets) == (4, True, 6, 2)
+    got = _assert_parse_equal(["--config", str(path), "--bucket_sz", "3",
+                               "--mask_root", "/m"])
+    assert (got.bucket_sz, got.nbr_buckets, got.mask_root) == (3, 2, "/m")
+    path.write_text("task: TCAM\narch: UnetTCAM\nbucket_size: 4\n")
+    with pytest.raises(ValueError, match="unknown keys"):
         parse_args(["--config", str(path)])
 
 
@@ -205,14 +215,19 @@ def test_finalize_checks_of_this_slice(bad, err):
 
 
 def test_the_ported_keys():
-    """The keys of this slice exist with JAX's defaults (all keys:
+    """The keys of the slices exist with JAX's defaults, and the port has
+    all 216 of JAX's keys (their defaults:
     test_torch_step.py::test_config_defaults_match_hparams)."""
     ref = jhp.get_config("YouTube-Objects-v1.0")
     for k in ("sl_tc_epoch_switch_to_sl", "im_rec", "im_rec_lambda",
               "im_rec_elb", "img_range", "sl_fc", "sl_block", "sl_tc_block",
               "crf_fc", "crf_lambda", "entropy_fc", "max_sizepos_fc_end_ep"):
         assert _same(getattr(TCAMConfig(), k), ref[k]), k
-    assert len(KEYS) == 206 and set(KEYS) <= set(ref)
+    for k in ("plot_tr_cam_progress", "plot_tr_cam_progress_n",
+              "alpha_visu", "mask_root", "ds_chunkable", "nbr_chunks",
+              "bucket_sz", "bucket_stage_cmd", "bucket_cleanup_cmd"):
+        assert _same(getattr(TCAMConfig(), k), ref[k]), k
+    assert len(KEYS) == 216 and set(KEYS) == set(ref)
 
 
 THROUGHPUT = {"train_dispatch_chunk": "4", "eval_transfer": "uint16",

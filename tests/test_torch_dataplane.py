@@ -412,8 +412,18 @@ def test_cli_trains_with_the_data_plane_flags(synth, tmp_path, resize,
 
 
 def test_cli_refuses_what_is_not_ported(synth, tmp_path):
-    with pytest.raises(SystemExit):
-        cli_train.main(_cli_flags(synth, str(tmp_path), "--bucket_sz", "4"))
+    """--bucket_sz is ported: it parses as JAX's parse_args parses it;
+    h2d_transfer uint16 is refused, as in JAX."""
+    from tcam_wsol_video_tpu.core.hparams import parse_args as jparse
+    from tcam_wsol_video_tpu_torch.core.config import parse_args
+    flags = ["--bucket_sz", "4", "--ds_chunkable", "true", "--nbr_chunks",
+             "12"]
+    got, _ = parse_args(flags)
+    want = jparse(flags)
+    assert (got.bucket_sz, got.ds_chunkable, got.nbr_chunks,
+            got.nbr_buckets) == (want.bucket_sz, want.ds_chunkable,
+                                 want.nbr_chunks, want.nbr_buckets) == \
+        (4, True, 12, 3)
     with pytest.raises(ValueError):
         cli_train.main(_cli_flags(synth, str(tmp_path), "--h2d_transfer",
                                   "uint16"))

@@ -84,6 +84,20 @@ def test_config_defaults_match_hparams():
         assert finalize(cfg.replace(sl_tc_roi_method=method))
 
 
+@pytest.mark.parametrize("ds", [C.CUB, C.ILSVRC, C.OpenImages, C.YTOV1,
+                                C.YTOV22])
+def test_config_defaults_match_hparams_of_every_dataset(ds):
+    """config_for(ds) is JAX's get_config(ds), all 216 keys: the port
+    refuses none of them (JAX's core/cache.py and core/hparams.py have no
+    port module by design: core/config.py does their work)."""
+    from tcam_wsol_video_tpu_torch.core.config import config_for
+    ref = get_config(ds)
+    got = config_for(ds).__dict__
+    assert len(got) == len(ref) == 216 and set(got) == set(ref)
+    for k, v in got.items():
+        assert ref[k] == v and type(ref[k]) is type(v), (k, ref[k], v)
+
+
 def _jax_args(targs=None):
     """JAX's config of the port's `targs`: the same keys, so the same
     compute dtypes."""
