@@ -1284,7 +1284,7 @@ def phase_feed(seed: int, data: dict) -> dict:
               f"{r['data_pixels_ms_per_step']:.2f}, plan "
               f"{r['data_plan_ms']:.2f} ms in the epoch), pool misses "
               f"{r['pool_misses']}, decodes {r['pool_decodes']}, assembly "
-              f"{r['data_assembly_ms_per_step']:.3f} ms/step (CUDA events), "
+              f"{r['data_assembly_ms_per_step']:.3f} ms/step (host), "
               f"median step {r['median_step_ms']:.2f} ms", flush=True)
         check(r["data_route"] == "device_feed", f"path G epoch {r['epoch']}"
               f": data route {r['data_route']}")

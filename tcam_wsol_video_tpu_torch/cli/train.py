@@ -62,6 +62,7 @@ import torch
 
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.core.config import TCAMConfig, parse_args
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import ilsvrc_buckets
@@ -109,6 +110,7 @@ def eval_dataset(args: TCAMConfig, kc: KeyChain, split: str, md=None
         kc, crop_size=args.crop_size)
 
 
+@TRACE.wrap("setup.data")
 def build_data(args: TCAMConfig, kc: KeyChain, device,
                mesh: Optional[pmesh.Mesh] = None):
     """Returns (args with the resolved metadata root, train pipeline,

@@ -25,6 +25,8 @@ import tempfile
 import time
 from typing import Dict, Iterable
 
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "native")
@@ -117,7 +119,9 @@ def build_all(names: Iterable[str] = tuple(LIBS),
 
 
 @functools.lru_cache(maxsize=None)
+@TRACE.wrap("setup.kernels")
 def load(name: str) -> ctypes.CDLL:
-    """The library `name`, built first if needed."""
+    """The library `name`, built first if needed (once a process: the
+    span setup.kernels)."""
     build_all([name])
     return ctypes.CDLL(library(name))

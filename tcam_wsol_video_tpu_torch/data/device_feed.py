@@ -27,10 +27,16 @@ for bit; the CAM side differs from the streamed route's host numpy by
 float rounding (~1e-7), which can flip a pixel on a threshold.  The
 feed is off for eval splits and over budget; the pipeline then streams,
 and says so in its `data_route`.
+
+On core/clock.TRACE the feed records the spans feed.plan (the sampling
+plan), feed.fill (epoch_plan's burst of decodes), data.pixels (a
+per-step epoch's decodes before each batch) and feed.assemble (a
+per-step epoch's assembly), and the counters feed.frames (the distinct
+frames an epoch samples), feed.misses (sampled frames not yet resident)
+and feed.decodes.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -39,7 +45,7 @@ import torch
 from tcam_wsol_video_tpu_torch.cams.roi import roi_batch
 from tcam_wsol_video_tpu_torch.cams.temporal import fuse_temporal_max
 from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.core.clock import SpanClock
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.transforms import crop_flip, to_device
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
@@ -142,8 +148,6 @@ class DeviceTrainFeed:
         self.assemble = make_assemble(self.c, self.r, ds.roi_method,
                                       ds.p_min_area_roi, bool(ds.use_roi),
                                       self.has_store)
-        self.timing: Dict[str, List[float]] = {}
-        self.counts = {"pool_misses": 0, "pool_decodes": 0}
         self.enabled = True
 
     # ------------------------------------------------------- pool filling
@@ -161,7 +165,7 @@ class DeviceTrainFeed:
         the card the decode runs on nvJPEG's side stream and the insert on
         the current stream, after the work that reads the pool."""
         missing = ~self.resident[rows]
-        self.counts["pool_misses"] += int(missing.sum())
+        TRACE.count("feed.misses", int(missing.sum()))
         miss = np.unique(rows[missing])
         if miss.size == 0:
             return
@@ -169,7 +173,7 @@ class DeviceTrainFeed:
         self.frames_pool[to_device(miss, self.device)] = frames
         self.resident[miss] = True
         self.decodes[miss] += 1
-        self.counts["pool_decodes"] += int(miss.size)
+        TRACE.count("feed.decodes", int(miss.size))
 
     # ------------------------------------------------------------- epochs
     def _plan_epoch(self, epoch: int, subset: Optional[np.ndarray] = None):
@@ -250,46 +254,37 @@ class DeviceTrainFeed:
         with every frame it touches made resident in one burst before the
         first dispatch (JAX DeviceTrainFeed.epoch_plan).  Returns (plan
         {name: (n_steps, target[, T]) host array}, per-step frame ids, the
-        heat t); records the plan and pool-fill ms and the burst's misses
-        (distinct frames) and decodes as the epoch's counts."""
-        self.counts = {"pool_misses": 0, "pool_decodes": 0}
-        self.timing = {"pixels_ms": [], "assembly_ms": []}
+        heat t)."""
         self.ds.set_epoch(epoch)
-        t0 = time.perf_counter()
-        plan, all_ids, t_heat = self._plan_epoch(epoch, subset)
-        self.timing["plan_ms"] = [(time.perf_counter() - t0) * 1e3]
+        with TRACE.span("feed.plan"):
+            plan, all_ids, t_heat = self._plan_epoch(epoch, subset)
         if all_ids:
-            t0 = time.perf_counter()
-            self._ensure_resident(np.unique(plan["rows"]))
-            self.timing["fill_ms"] = [(time.perf_counter() - t0) * 1e3]
+            rows = np.unique(plan["rows"])
+            TRACE.count("feed.frames", rows.size)
+            with TRACE.span("feed.fill"):
+                self._ensure_resident(rows)
         return plan, all_ids, t_heat
 
     def epoch(self, epoch: int, subset: Optional[np.ndarray] = None
               ) -> Iterator[dict]:
         """The epoch's batches on the pools' device: the assembly's planes
         plus label, seq_iter, frm_iter, valid and image_id."""
-        self.counts = {"pool_misses": 0, "pool_decodes": 0}
-        self.timing = {"pixels_ms": [], "assembly_ms": []}
-        clock = SpanClock(self.device)
-        t0 = time.perf_counter()
-        plan, all_ids, t_heat = self._plan_epoch(epoch, subset)
+        with TRACE.span("feed.plan"):
+            plan, all_ids, t_heat = self._plan_epoch(epoch, subset)
+            dev = {k: to_device(v, self.device) for k, v in plan.items()}
         if not all_ids:
             return
-        dev = {k: to_device(v, self.device) for k, v in plan.items()}
-        self.timing["plan_ms"] = [(time.perf_counter() - t0) * 1e3]
+        TRACE.count("feed.frames", np.unique(plan["rows"]).size)
         for s in range(len(all_ids)):
-            t0 = time.perf_counter()
-            self._ensure_resident(plan["rows"][s])
-            self.timing["pixels_ms"].append((time.perf_counter() - t0)
-                                            * 1e3)
-            begin = clock.start()
-            batch = self.assemble(
-                self.frames_pool, self.cams_pool, dev["rows"][s],
-                dev["cam_rows"][s], dev["cam_valid"][s], dev["ys"][s],
-                dev["xs"][s], dev["flips"][s], t_heat, dev["threshs"][s])
-            clock.stop(begin)
+            with TRACE.span("data.pixels"):
+                self._ensure_resident(plan["rows"][s])
+            with TRACE.span("feed.assemble"):
+                batch = self.assemble(
+                    self.frames_pool, self.cams_pool, dev["rows"][s],
+                    dev["cam_rows"][s], dev["cam_valid"][s], dev["ys"][s],
+                    dev["xs"][s], dev["flips"][s], t_heat,
+                    dev["threshs"][s])
             for key in ("label", "seq_iter", "frm_iter", "valid"):
                 batch[key] = dev[key][s]
             batch["image_id"] = all_ids[s]
             yield batch
-        self.timing["assembly_ms"] = clock.millis()

@@ -24,15 +24,21 @@ decode_cache_mb, train_device_cache_mb):
 - train_device_cache_mb: the card-resident train feed
   (data/device_feed.DeviceTrainFeed) serves the train epochs when the
   frames pool fits the budget; `data_route` says which route ran.
+
+A streamed batch records the spans data.pixels (the decode, resize and
+crop; on the card the host's part of it) and, over a CAM store, data.cams
+(the host CAM side: the stored CAMs fused, resized, cropped, their ROI)
+on core/clock.TRACE.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
@@ -132,10 +138,6 @@ class DataPipeline:
         if train_device_cache_mb > 0:
             feed = DeviceTrainFeed(self, train_device_cache_mb)
             self._device_feed = feed if feed.enabled else None
-        # ms per batch of the last epoch: the host's pixel work (decode,
-        # resize, crop; on the card the host's part of it; the feed's pool
-        # fill), the host CAM side, and the feed's assembly on the device
-        self.timing: Dict[str, List[float]] = {}
         self._cache_seen = (0, 0)
 
     @property
@@ -145,30 +147,16 @@ class DataPipeline:
         return "stream" if self._device_feed is None else "device_feed"
 
     def epoch_stats(self) -> dict:
-        """The last epoch's data plane: its route, the mean ms per batch
-        of each `timing` entry (data_<name>_per_step), the feed's plan ms
-        (data_plan_ms, once an epoch) and, for the chunked runner, its
-        pool fill before the first dispatch (data_fill_ms), the decoded-frame
-        cache's hits and misses in the epoch and the feed's pool misses
-        (frames not resident when their step came) and decodes."""
-        feed = self._device_feed
-        timing = {"pixels_ms": [], "cams_ms": [], "assembly_ms": [],
-                  **(feed.timing if feed is not None else self.timing)}
-        once = ("plan_ms", "fill_ms")
-        out = {"data_route": self.data_route,
-               **{f"data_{k}_per_step": float(np.mean(v)) if v else 0.0
-                  for k, v in timing.items() if k not in once},
-               **{f"data_{k}": float(sum(timing.get(k, [])))
-                  for k in once}}
+        """The data plane since the last call: its route and the
+        decoded-frame cache's hits and misses."""
         cache = self._decode_cache
         hits, misses = ((cache.hits, cache.misses) if cache is not None
                         else (0, 0))
-        out["cache_hits"] = hits - self._cache_seen[0]
-        out["cache_misses"] = misses - self._cache_seen[1]
+        out = {"data_route": self.data_route,
+               "cache_hits": hits - self._cache_seen[0],
+               "cache_misses": misses - self._cache_seen[1]}
         self._cache_seen = (hits, misses)
-        counts = (feed.counts if feed is not None
-                  else {"pool_misses": 0, "pool_decodes": 0})
-        return {**out, **counts}
+        return out
 
     def _epoch_indices_valid(self, epoch: int,
                              subset: Optional[np.ndarray] = None):
@@ -244,23 +232,25 @@ class DataPipeline:
                         ys.append(0)
                         xs.append(0)
                         flips.append(0)
-            t0 = time.perf_counter()
-            norm, raw = self._load_pixels(
-                [f"{ds.data_root}/{f}" for f in fids], r, c, xs, ys, flips)
-            t1 = time.perf_counter()
-            n = len(fids)
-            cams = np.zeros((n, c, c), np.float32)
-            has = np.zeros((n,), np.float32)
-            rois = np.zeros((n, c, c), np.int32)
-            msks = np.ones((n, c, c), np.float32)
-            fgs = np.zeros((n,), np.float32)
-            if ds.cam_store is not None:
-                for m, fid in enumerate(fids):
-                    (cams[m], has[m], rois[m], msks[m],
-                     fgs[m]) = ds.cam_roi_for(fid, ys[m], xs[m],
-                                              bool(flips[m]))
-            self.timing["pixels_ms"].append((t1 - t0) * 1e3)
-            self.timing["cams_ms"].append((time.perf_counter() - t1) * 1e3)
+            with TRACE.span("data.pixels"):
+                norm, raw = self._load_pixels(
+                    [f"{ds.data_root}/{f}" for f in fids], r, c, xs, ys,
+                    flips)
+            # a batch without stored CAMs has no CAM side: its empty
+            # planes are the wait's own time
+            with (TRACE.span("data.cams") if ds.cam_store is not None
+                  else contextlib.nullcontext()):
+                n = len(fids)
+                cams = np.zeros((n, c, c), np.float32)
+                has = np.zeros((n,), np.float32)
+                rois = np.zeros((n, c, c), np.int32)
+                msks = np.ones((n, c, c), np.float32)
+                fgs = np.zeros((n,), np.float32)
+                if ds.cam_store is not None:
+                    for m, fid in enumerate(fids):
+                        (cams[m], has[m], rois[m], msks[m],
+                         fgs[m]) = ds.cam_roi_for(fid, ys[m], xs[m],
+                                                  bool(flips[m]))
             batch = {
                 "image": norm,
                 "label": np.asarray(labels, np.int32),
@@ -297,7 +287,6 @@ class DataPipeline:
         if self._device_feed is not None:
             yield from self._device_feed.epoch(epoch, subset)
             return
-        self.timing = {"pixels_ms": [], "cams_ms": []}
         idxs, shard_valid = self._epoch_indices_valid(epoch, subset)
         yield from self._epoch_native(epoch, idxs, shard_valid,
                                       self.batch_size * self.ds.clip_len)

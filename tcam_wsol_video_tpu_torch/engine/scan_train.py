@@ -29,10 +29,19 @@ it was, so the warm-up trains nothing.  A capture that fails raises:
 nothing retries eagerly.  A kernel wrapper counts its launches when the
 graph captures it; the counts are taken back after the capture and added
 once per replay (ops/cuda/build.COUNTERS).
+
+On core/clock.TRACE an epoch records the spans data.wait (the plan, the
+pool fill and the plan's upload), dispatch.capture (a graph's capture,
+its chunk's inputs filled first), dispatch.warmup (the eager warm-up
+inside the first capture), dispatch.replay (a chunk's dispatch: its
+inputs filled, then the replay on the card or the K eager steps on the
+CPU, whose assemblies are feed.assemble), epoch.sync (the wait for the
+device at the end) and dispatch.release (the graphs freed), and the
+device gaps between consecutive chunks (device.gap, from the chunks'
+SpanClock marks).
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -40,6 +49,7 @@ import torch
 
 from tcam_wsol_video_tpu_torch.cams.seeding import gumbel_noise
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.core.clock import TRACE, SpanClock
 from tcam_wsol_video_tpu_torch.data.transforms import to_device
 from tcam_wsol_video_tpu_torch.engine.state import TrainState
 from tcam_wsol_video_tpu_torch.ops.cuda.build import COUNTERS
@@ -120,22 +130,18 @@ class ChunkedEpochRunner:
         None; its step i draws the keys of step key_offset + i, so a
         bucketed epoch's keys run on across its buckets as the per-step
         loop's do).  on_chunk(offset, k, metrics) after each chunk
-        (state.step already advanced by k).  Returns the epoch's record:
-        steps, per-step metrics (device tensors), the chunk spans (CUDA
-        events on the card, the host clock on the CPU), the host's ms to
-        enqueue each chunk (the first replay of a graph uploads it), the
-        host ms of each capture (the warm-up in the first), and the plan's
-        host ms."""
+        (state.step already advanced by k).  Returns the epoch's steps,
+        per-step metrics (device tensors) and each step's ms (its chunk's
+        span over its steps: CUDA events on the card, the host clock on
+        the CPU)."""
         feed = self.feed
-        t0 = time.perf_counter()
-        plan, all_ids, t_heat = feed.epoch_plan(epoch, subset)
+        with TRACE.span("data.wait"):
+            plan, all_ids, t_heat = feed.epoch_plan(epoch, subset)
+            dev_plan = {k: to_device(v, self.device)
+                        for k, v in plan.items()}
         n = len(all_ids)
-        rec = {"steps": n, "metrics": [], "chunk_ms": [], "chunk_k": [],
-               "enqueue_ms": [], "capture_ms": [], "plan_ms": 0.0}
         if n == 0:
-            return rec
-        dev_plan = {k: to_device(v, self.device) for k, v in plan.items()}
-        rec["plan_ms"] = (time.perf_counter() - t0) * 1e3
+            return {"steps": 0, "metrics": [], "step_ms": []}
         b = plan["rows"].shape[1]
         c = feed.c
         self._static = {k: v[:self.chunk].clone() for k, v in
@@ -146,42 +152,42 @@ class ChunkedEpochRunner:
         self._gens = [torch.Generator(device=self.device)
                       for _ in range(self.chunk)]
         graphs: Dict[int, tuple] = {}
+        clock = SpanClock(self.device)
+        metrics: List[dict] = []
+        ks: List[int] = []
         done = 0
         while done < n:
             k = min(self.chunk, n - done)
+            TRACE.step = (epoch, key_offset + done)
             if self.cuda and k not in graphs:
                 # the warm-up runs on the chunk's inputs; the fill below
                 # seeds the generators again after it
-                t_cap = time.perf_counter()
+                with TRACE.span("dispatch.capture"):
+                    self._fill(dev_plan, done, k, keychain, epoch,
+                               key_offset)
+                    graphs[k] = self._capture(state, k, switches,
+                                              seed_weighted, t_heat)
+            with TRACE.span("dispatch.replay"):
                 self._fill(dev_plan, done, k, keychain, epoch, key_offset)
-                graphs[k] = self._capture(state, k, switches, seed_weighted,
-                                          t_heat)
-                rec["capture_ms"].append((time.perf_counter() - t_cap) * 1e3)
-            t_host = time.perf_counter()
-            self._fill(dev_plan, done, k, keychain, epoch, key_offset)
-            if self.cuda:
-                begin = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                begin.record()
-                metrics = self._replay(state, graphs[k], k)
-                end.record()
-                rec["chunk_ms"].append((begin, end))
-            else:
-                t_run = time.perf_counter()
-                metrics = self._eager(state, k, switches, seed_weighted,
-                                      t_heat)
-                rec["chunk_ms"].append((time.perf_counter() - t_run) * 1e3)
-            rec["enqueue_ms"].append((time.perf_counter() - t_host) * 1e3)
-            rec["chunk_k"].append(k)
-            rec["metrics"] += metrics
+                begin = clock.start()
+                out = (self._replay(state, graphs[k], k) if self.cuda
+                       else self._eager(state, k, switches, seed_weighted,
+                                        t_heat))
+                clock.stop(begin)
+            ks.append(k)
+            metrics += out
             if on_chunk is not None:
-                on_chunk(done, k, metrics)
+                on_chunk(done, k, out)
             done += k
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-            rec["chunk_ms"] = [a.elapsed_time(e) for a, e in rec["chunk_ms"]]
-        del graphs
-        return rec
+        TRACE.step = (epoch, None)
+        with TRACE.span("epoch.sync"):
+            chunk_ms = clock.millis()
+        TRACE.device("device.gap", clock.gaps())
+        with TRACE.span("dispatch.release"):
+            del graphs
+        return {"steps": n, "metrics": metrics,
+                "step_ms": [ms / k for ms, k in zip(chunk_ms, ks)
+                            for _ in range(k)]}
 
     def _fill(self, dev_plan, start: int, k: int, keychain,
               epoch: int, key_offset: int = 0) -> None:
@@ -207,18 +213,15 @@ class ChunkedEpochRunner:
             self._gumbel, self._gens[:k], switches, seed_weighted, t_heat, k)
 
     def _eager(self, state, k, switches, seed_weighted, t_heat):
-        """The CPU's chunk: k eager iterations, each assembly timed."""
+        """The CPU's chunk: k eager iterations, each assembly a span."""
         feed = self.feed
 
-        def timed(*a):
-            t0 = time.perf_counter()
-            out = feed.assemble(*a)
-            feed.timing["assembly_ms"].append((time.perf_counter() - t0)
-                                              * 1e3)
-            return out
+        def assemble(*a):
+            with TRACE.span("feed.assemble"):
+                return feed.assemble(*a)
 
         return self._call(state, k, switches, seed_weighted, t_heat,
-                          make_chunk_runner(timed, self.train_step))
+                          make_chunk_runner(assemble, self.train_step))
 
     # ------------------------------------------------------------ graphs
     def _warm_up(self, state, switches, seed_weighted, t_heat,
@@ -266,7 +269,9 @@ class ChunkedEpochRunner:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         if not self._warm:
-            self._warm_up(state, switches, seed_weighted, t_heat, stream)
+            with TRACE.span("dispatch.warmup"):
+                self._warm_up(state, switches, seed_weighted, t_heat,
+                              stream)
         graph = torch.cuda.CUDAGraph()
         if self._live_dropout:
             for g in self._gens[:k]:

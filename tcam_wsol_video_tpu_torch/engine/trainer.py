@@ -19,12 +19,16 @@ record names its seed source (`student`, `classifier` for the seeds
 recomputed without a store, `batch` for the batch's CAMs) and counts the
 student's reloads.
 
-The host loop records per epoch the time blocked on the pipeline (data
-wait), the pipeline's own record of the epoch (its route, stream or the
-card-resident feed, and its timings and counts: DataPipeline.epoch_stats)
-and each step's time: on a CUDA device the span between CUDA events
-recorded before and after the step, on the CPU the host clock; and the
-host's time to enqueue a step.
+Each epoch record carries the epoch's spans and counters from
+core/clock.TRACE (`spans`: {name: [count, ms, self ms]}, `counts`), taken
+at its end, and `setup`: the set-up spans (setup.data, setup.model,
+setup.trainer, setup.kernels) recorded before the trainer's first epoch
+and that epoch's span, the same on every record.  An epoch is the span
+epoch; its data waits data.wait, a per-step dispatch step.enqueue, its
+wait for the device epoch.sync, and the device's time between
+consecutive steps device.gap (from the steps' SpanClock marks: CUDA
+events on the card, the host clock on the CPU).  The record's timing
+keys are computed from them (_timing_keys).
 
 The dispatch route (JAX's rule, engine/scan_train.engages): with the
 card-resident feed on and train_dispatch_chunk K > 0, an epoch runs K
@@ -76,7 +80,6 @@ import copy
 import json
 import os
 import pickle
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -87,7 +90,7 @@ from tcam_wsol_video_tpu_torch.cams.seeding import (cbox_seeder_cfg_from_args,
 from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
 from tcam_wsol_video_tpu_torch.core import constants
-from tcam_wsol_video_tpu_torch.core.clock import SpanClock
+from tcam_wsol_video_tpu_torch.core.clock import TRACE, SpanClock
 from tcam_wsol_video_tpu_torch.core.config import PORTED_TASKS, experiment_tag
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
@@ -130,6 +133,7 @@ class PerformanceMeter:
 
 
 class Trainer:
+    @TRACE.wrap("setup.trainer")
     def __init__(self, args, model, train_pipe, eval_pipes: Dict[str, tuple],
                  keychain: Optional[KeyChain] = None, device="cuda",
                  classifier=None, mesh: Optional[pmesh.Mesh] = None):
@@ -211,6 +215,8 @@ class Trainer:
         self.best_cl_state: Optional[dict] = None
         self.student_reloads = 0
         self.records: Dict[str, list] = {"train": [], "eval": []}
+        # the set-up spans, taken when the first epoch starts
+        self.setup: Optional[Dict[str, list]] = None
         # ILSVRC: a BucketStager run around each bucket (the train CLI
         # attaches one), and the train ids' dataset indices
         self.bucket_stager: Optional[ilsvrc_buckets.BucketStager] = None
@@ -306,6 +312,28 @@ class Trainer:
         return True
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
+        spans, _ = TRACE.take()
+        if self.setup is None:
+            self.setup = {k: v for k, v in spans.items()
+                          if k.startswith("setup.")}
+        TRACE.step = (epoch, None)
+        with TRACE.span("epoch"):
+            out = self._train_epoch(epoch)
+        TRACE.step = None
+        spans, counts = TRACE.take()
+        self.setup.setdefault("epoch", spans["epoch"])
+        out.update(_timing_keys(spans, counts, out["steps"]), spans=spans,
+                   counts=counts, setup=self.setup)
+        self.meters["train_loss"].update(out["loss"], epoch)
+        self.meters["train_classification"].update(out["classification"],
+                                                   epoch)
+        self.records["train"].append(out)
+        self.logger.log({"split": "train", **{
+            k: v for k, v in out.items() if k != "step_ms"}},
+            step=self.state.step)
+        return out
+
+    def _train_epoch(self, epoch: int) -> Dict[str, float]:
         args = self.args
         if self.decay_temp is not None:
             self.decay_temp.set_epoch(epoch)
@@ -323,7 +351,6 @@ class Trainer:
         feed = getattr(self.train_pipe, "_device_feed", None)
         chunked = scan_train.engages(args, feed, use_student,
                                      self._recompute_cams)
-        t_epoch = time.perf_counter()
         self.mesh.clock = SpanClock(self.device)
         if chunked:
             run = self._run_chunked_epoch(epoch, feed, switches,
@@ -331,7 +358,6 @@ class Trainer:
         else:
             run = self._run_per_step_epoch(epoch, switches, seed_weighted,
                                            student)
-        wall_ms = (time.perf_counter() - t_epoch) * 1e3
         comm_ms = self.mesh.clock.millis()
         self.mesh.clock = None
         zero = torch.zeros((), device=self.device)
@@ -363,30 +389,19 @@ class Trainer:
             # each loss term's mean over the epoch's steps
             "terms": {k: float(v) / max(1, i) for k, v in terms.items()},
             "classification": 100.0 * float(n_corr) / max(1.0, float(n)),
-            "n": int(n), "steps": i, "wall_ms": wall_ms,
+            "n": int(n), "steps": i,
             "median_step_ms": float(np.median(step_ms)) if step_ms else 0.0,
             "step_ms": step_ms,
             # the gradient all-reduce over the dp group (0 on one rank)
             "allreduce_ms_per_step": float(np.mean(comm_ms))
             if comm_ms else 0.0,
             "mesh": self.mesh.shape,
-            "data_wait_ms_per_step": run["data_wait_ms_per_step"],
-            # the host's time to enqueue a step (a chunk's over its steps)
-            "host_enqueue_ms_per_step": run["enqueue_ms_per_step"],
             "dispatch": "chunked" if chunked else "per_step",
             "dispatch_chunk": int(args.train_dispatch_chunk) if chunked
             else 0,
-            # the host ms of the epoch's CUDA graph captures (warm-up
-            # included)
-            "capture_ms": run["capture_ms"],
-            # the data plane: its route; the host's pixels and CAM side,
-            # the feed's assembly; cache hits and misses, pool misses and
-            # decodes
+            # the data plane's route and decoded-frame cache
             **self.train_pipe.epoch_stats(),
-            "elb_t": self.state.elb_t, "lr": self.lr_fn(epoch),
-            "heat_t": (self.decay_temp.t if self.decay_temp is not None
-                       else 0.0),
-            "seed_weighted": seed_weighted,
+            "elb_t": self.state.elb_t,
             "seed_source": ("student" if use_student else "classifier"
                             if self._recompute_cams else "batch"),
             "student_epoch": self._student_epoch if use_student else None,
@@ -395,44 +410,34 @@ class Trainer:
         if self.cbox:
             # the share of the epoch's frames whose trained box was valid
             out["valid_box_share"] = float(valid_boxes) / max(1.0, float(n))
-        self.meters["train_loss"].update(out["loss"], epoch)
-        self.meters["train_classification"].update(out["classification"],
-                                                   epoch)
-        self.records["train"].append(out)
-        self.logger.log({"split": "train", **{
-            k: v for k, v in out.items() if k != "step_ms"}},
-            step=self.state.step)
         return out
 
     def _run_per_step_epoch(self, epoch: int, switches, seed_weighted: bool,
                             student) -> dict:
         """One step a dispatch over the pipeline's batches.  Returns the
-        per-step metrics, step ms (CUDA events on the card), the mean data
-        wait and the host's enqueue ms a step."""
+        per-step metrics and step ms (CUDA events on the card)."""
         args = self.args
         clock = SpanClock(self.device)
-        wait_ms: List[float] = []
-        enqueue_ms: List[float] = []
         out: List[dict] = []
         batches = self._epoch_batches(epoch)
         while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            wait_ms.append((time.perf_counter() - t0) * 1e3)
+            i = len(out)
+            TRACE.step = (epoch, i)
+            with TRACE.span("data.wait"):
+                batch = next(batches, None)
             if batch is None:
                 break
-            i = len(out)
             dev_batch = {k: v for k, v in batch.items() if k != "image_id"}
-            t0 = time.perf_counter()
-            gen = self.kc.key("train", epoch, i, device=self.device)
-            drop_gen = self.kc.key("dropout", epoch, i, device=self.device)
-            begin = clock.start()
-            metrics = self.train_step(self.state, dev_batch, switches,
-                                      seed_weighted=seed_weighted,
-                                      generator=gen, student=student,
-                                      dropout_generator=drop_gen)
-            clock.stop(begin)
-            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            with TRACE.span("step.enqueue"):
+                gen = self.kc.key("train", epoch, i, device=self.device)
+                drop_gen = self.kc.key("dropout", epoch, i,
+                                       device=self.device)
+                begin = clock.start()
+                metrics = self.train_step(self.state, dev_batch, switches,
+                                          seed_weighted=seed_weighted,
+                                          generator=gen, student=student,
+                                          dropout_generator=drop_gen)
+                clock.stop(begin)
             out.append(metrics)
             if (args.checkpoint_save > 0
                     and self.state.step % args.checkpoint_save == 0):
@@ -442,12 +447,11 @@ class Trainer:
                                  "it": i + 1,
                                  "loss": float(metrics["loss"])},
                                 step=self.state.step)
-        return {"metrics": out, "step_ms": clock.millis(),
-                # the last wait is the end of the epoch, not a step's
-                "data_wait_ms_per_step": float(np.mean(wait_ms[:-1]))
-                if out else 0.0,
-                "enqueue_ms_per_step": float(np.mean(enqueue_ms))
-                if out else 0.0, "capture_ms": 0.0}
+        TRACE.step = (epoch, None)
+        with TRACE.span("epoch.sync"):
+            step_ms = clock.millis()
+        TRACE.device("device.gap", clock.gaps())
+        return {"metrics": out, "step_ms": step_ms}
 
     def _run_chunked_epoch(self, epoch: int, feed, switches,
                            seed_weighted: bool) -> dict:
@@ -469,34 +473,21 @@ class Trainer:
                     > (self.state.step - k) // args.checkpoint_save):
                 self._save_checkpoint()
 
-        rec = None
+        run = {"metrics": [], "step_ms": []}
         for bucket in self._train_buckets():
             part = runner.run_epoch(
                 self.state, epoch, self.kc, switches, seed_weighted,
                 on_chunk=on_chunk, subset=self._bucket_subset(bucket),
-                key_offset=0 if rec is None else rec["steps"])
-            if rec is None:
-                rec = part
-                continue
-            rec["steps"] += part["steps"]
-            rec["plan_ms"] += part["plan_ms"]
-            for k in ("metrics", "chunk_ms", "chunk_k", "enqueue_ms",
-                      "capture_ms"):
-                rec[k] += part[k]
+                key_offset=len(run["metrics"]))
+            run["metrics"] += part["metrics"]
+            run["step_ms"] += part["step_ms"]
         if args.log_every:
-            for i, m in enumerate(rec["metrics"]):
+            for i, m in enumerate(run["metrics"]):
                 if (i + 1) % args.log_every == 0:
                     self.logger.log({"split": "train", "epoch": epoch,
                                      "it": i + 1, "loss": float(m["loss"])},
                                     step=host_step + i + 1)
-        n = max(rec["steps"], 1)
-        return {"metrics": rec["metrics"],
-                "step_ms": [ms / k for ms, k in zip(rec["chunk_ms"],
-                                                    rec["chunk_k"])
-                            for _ in range(k)],
-                "data_wait_ms_per_step": (rec["plan_ms"]) / n,
-                "enqueue_ms_per_step": sum(rec["enqueue_ms"]) / n,
-                "capture_ms": sum(rec["capture_ms"])}
+        return run
 
     # --------------------------------------------------------------- eval
     def evaluate(self, epoch: int, split: str, snapshot: str = "",
@@ -706,3 +697,30 @@ class Trainer:
 
         self._host_file(os.path.join("progress", f"epoch_{epoch:04d}.png"),
                         write)
+
+
+def _timing_keys(spans: Dict[str, list], counts: Dict[str, int],
+                 steps: int) -> dict:
+    """The epoch record's timing keys from its spans and counters: a
+    `_per_step` key is the span's ms over the epoch's steps; the wall is
+    the epoch span's; the host's enqueue is a per-step dispatch's or a
+    chunk's (over its steps); the capture, plan and fill are the epoch's
+    ms."""
+    def ms(name: str) -> float:
+        return float(spans.get(name, (0, 0.0))[1])
+
+    per = 1.0 / max(steps, 1)
+    return {
+        "wall_ms": ms("epoch"),
+        "data_wait_ms_per_step": ms("data.wait") * per,
+        "host_enqueue_ms_per_step": (ms("step.enqueue")
+                                     + ms("dispatch.replay")) * per,
+        "capture_ms": ms("dispatch.capture"),
+        "data_pixels_ms_per_step": ms("data.pixels") * per,
+        "data_cams_ms_per_step": ms("data.cams") * per,
+        "data_assembly_ms_per_step": ms("feed.assemble") * per,
+        "data_plan_ms": ms("feed.plan"),
+        "data_fill_ms": ms("feed.fill"),
+        "pool_misses": int(counts.get("feed.misses", 0)),
+        "pool_decodes": int(counts.get("feed.decodes", 0)),
+    }

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from tcam_wsol_video_tpu_torch.core import constants
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.models.classifier import (DenseBoxNet,
                                                          STDClassifier)
 from tcam_wsol_video_tpu_torch.models.inception import inceptionv3_wsol
@@ -74,6 +75,7 @@ def create_model(task: str, encoder_name: str = constants.RESNET50,
     return model.to(torch.device(device))
 
 
+@TRACE.wrap("setup.model")
 def create_model_from_args(args, override_arch_for_classifier: bool = False,
                            device="cuda") -> nn.Module:
     """The model of args.task; override_arch_for_classifier builds the

@@ -21,6 +21,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 CSRC = os.path.join(_REPO, "tcam_wsol_video_tpu_torch", "csrc")
@@ -108,8 +110,10 @@ def build_all(names: Iterable[str] = SOURCES,
 
 
 @functools.lru_cache(maxsize=None)
+@TRACE.wrap("setup.kernels")
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library of csrc/<name>.cu, built first if needed."""
+    """The kernel library of csrc/<name>.cu, built first if needed (once
+    a process: the span setup.kernels)."""
     build_all([name])
     return ctypes.CDLL(library(name))
 
