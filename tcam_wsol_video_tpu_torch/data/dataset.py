@@ -170,15 +170,43 @@ class WSOLVideoDataset:
             window.append(frames[-1])
         return window
 
+    def cam_window_len(self) -> int:
+        """The longest window of stored CAMs a seed CAM fuses, 2 k + 1."""
+        k = (self.decay_temp.sl_tc_knn if self.decay_temp is not None
+             else self.sl_tc_knn)
+        return 2 * int(k) + 1
+
+    def cam_heat(self) -> float:
+        """The heat t of the fusion: the decay schedule's, 0 (none)
+        without a temporal window (sl_tc_knn == 0) or a schedule."""
+        if self.decay_temp is None or self.sl_tc_knn == 0:
+            return 0.0
+        return float(self.decay_temp.t)
+
+    def stored_threshs_255(self, frame_ids: List[str]) -> np.ndarray:
+        """(n,) float32 stored ROI thresholds x 255 of the frames; -1
+        (Otsu's) where the store has none, and for every frame with a
+        temporal window (sl_tc_knn > 0), after whose heating a stored
+        threshold is invalid."""
+        out = np.full(len(frame_ids), -1.0, np.float32)
+        stored = (self.cam_store.thresholds
+                  if self.cam_store is not None and self.sl_tc_knn == 0
+                  else None)
+        if stored is not None:
+            for i, fid in enumerate(frame_ids):
+                if fid in stored:
+                    # the store keeps [0, 1]; the ROI takes [0, 255]
+                    out[i] = stored[fid] * 255.0
+        return out
+
     def _fused_cam(self, frame_id: str) -> Optional[np.ndarray]:
         if self.cam_store is None:
             return None
-        t = self.decay_temp.t if self.decay_temp is not None else 0.0
-        heated = self.sl_tc_knn > 0 and t > 0
+        t = self.cam_heat()
         fused = None
         for fid in self._temporal_frames(frame_id):
             c = self.cam_store.load_cam(fid)
-            if heated:
+            if t > 0:
                 c = heat_cam_np(c, t)
             fused = c if fused is None else np.maximum(fused, c)
         return fused

@@ -14,19 +14,22 @@ on the pipeline's device:
 - each epoch uploads its sampling plan once (pool rows, crop offsets,
   flips, labels, CAM windows, thresholds: a few KB), and one assembly
   (make_assemble; the chunked runner of engine/scan_train.py calls it on
-  plan rows, epoch_plan) a step gathers, crops and flips the pixels, heat-fuses the CAM window,
+  plan rows, epoch_plan) a step gathers, crops and flips the pixels and
+  makes the CAM planes (assemble_cam_planes: heat-fuses the CAM window,
   resizes, crops, flips and clips the fused CAM and takes its ROI and
-  foreground size, all on the device: the compact batch of
+  foreground size), all on the device: the compact batch of
   h2d_transfer=uint8 (`raw_u8`; the train step derives the normalized
   input), with the CAM planes unpacked.
 
 The sampling streams are the streamed pipeline's (KeyChain("aug", split,
 epoch, index, frame): ys, then xs, then the flip), so turning the feed on
 replays the same epochs; the pixels equal the decoded-frame cache's bit
-for bit; the CAM side differs from the streamed route's host numpy by
-float rounding (~1e-7), which can flip a pixel on a threshold.  The
-feed is off for eval splits and over budget; the pipeline then streams,
-and says so in its `data_route`.
+for bit.  On a CUDA device the streamed route makes its CAM planes with
+the same assemble_cam_planes; on a CPU device it keeps the host numpy of
+WSOLVideoDataset.cam_roi_for, from which the feed's differs by float
+rounding (~1e-7), which can flip a pixel on a threshold.  The feed is
+off for eval splits and over budget; the pipeline then streams, and says
+so in its `data_route`.
 
 On core/clock.TRACE the feed records the spans feed.plan (the sampling
 plan), feed.fill (epoch_plan's burst of decodes), data.pixels (a
@@ -53,15 +56,48 @@ from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_skimage255
 from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
+def assemble_cam_planes(windows, cam_valid, ys, xs, flips, t: float,
+                        threshs, c: int, r: int, roi_method: str,
+                        p_min_area: float, use_roi: bool
+                        ) -> Dict[str, torch.Tensor]:
+    """A batch's CAM planes from its stored CAM windows, in one batched
+    pass on the windows' device: each window heat-fused (t > 0) by max,
+    resized to (r, r), cropped at (ys, xs), flipped where flips, clipped
+    to [0, 1], then its ROI and foreground size.  windows (B, T, h, w)
+    float32, cam_valid (B, T) bool, threshs (B,) stored thresholds in
+    [0, 255] (< 0: Otsu's).  Returns std_cam (B, c, c), has_cam (B,), roi
+    (B, c, c) int32, msk_bbox (B, c, c), fg_size (B,).  No host sync, so
+    it is captured in the feed's CUDA graphs; the streamed route calls it
+    too (data/pipeline.py)."""
+    b = windows.shape[0]
+    dev = windows.device
+    fused = fuse_temporal_max(windows, cam_valid, t)
+    fused = resize_bilinear(fused[..., None], (r, r),
+                            align_corners=False)[..., 0]
+    cam_t = crop_flip(fused, c, ys, xs, flips).clamp(0.0, 1.0)
+    if use_roi:
+        otsu = otsu_threshold_skimage255(torch.floor(cam_t * 255.0))
+        th = torch.where(threshs >= 0.0, threshs, otsu)
+        roi, msk, _ = roi_batch(cam_t, roi_method, p_min_area, threshs=th)
+        use_fg = roi.sum((1, 2)) > 0
+    else:
+        roi = torch.zeros((b, c, c), dtype=torch.int32, device=dev)
+        msk = torch.ones((b, c, c), device=dev)
+        use_fg = torch.zeros((b,), dtype=torch.bool, device=dev)
+    fg_roi = (cam_t * (roi > 0)).sum((1, 2)) / float(c * c)
+    fg = torch.where(use_fg, fg_roi, cam_t.mean((1, 2)))
+    return {"std_cam": cam_t, "has_cam": torch.ones((b,), device=dev),
+            "roi": roi, "msk_bbox": msk, "fg_size": fg}
+
+
 def make_assemble(c: int, r: int, roi_method: str, p_min_area: float,
                   use_roi: bool, has_store: bool):
     """Returns assemble(frames_pool, cams_pool, rows, cam_rows, cam_valid,
     ys, xs, flips, t, threshs) -> the batch planes, on the pools' device:
-    raw_u8 (B, c, c, 3) uint8, std_cam (B, c, c), has_cam (B,), roi
-    (B, c, c) int32, msk_bbox (B, c, c), fg_size (B,).  rows (B,) and
-    cam_rows (B, T) are int64 pool rows, cam_valid (B, T) bool, t the
-    heat (0 = none), threshs (B,) stored thresholds in [0, 255] (< 0:
-    Otsu's)."""
+    raw_u8 (B, c, c, 3) uint8 and assemble_cam_planes' planes of the
+    windows cams_pool[cam_rows].  rows (B,) and cam_rows (B, T) are int64
+    pool rows, cam_valid (B, T) bool, t the heat (0 = none), threshs (B,)
+    stored thresholds in [0, 255] (< 0: Otsu's)."""
 
     def assemble(frames_pool, cams_pool, rows, cam_rows, cam_valid, ys, xs,
                  flips, t: float, threshs) -> Dict[str, torch.Tensor]:
@@ -76,25 +112,9 @@ def make_assemble(c: int, r: int, roi_method: str, p_min_area: float,
                                        device=dev),
                     "msk_bbox": torch.ones((b, c, c), device=dev),
                     "fg_size": torch.zeros((b,), device=dev)}
-        fused = fuse_temporal_max(cams_pool[cam_rows], cam_valid, t)
-        fused = resize_bilinear(fused[..., None], (r, r),
-                                align_corners=False)[..., 0]
-        cam_t = crop_flip(fused, c, ys, xs, flips).clamp(0.0, 1.0)
-        if use_roi:
-            otsu = otsu_threshold_skimage255(torch.floor(cam_t * 255.0))
-            th = torch.where(threshs >= 0.0, threshs, otsu)
-            roi, msk, _ = roi_batch(cam_t, roi_method, p_min_area,
-                                    threshs=th)
-            use_fg = roi.sum((1, 2)) > 0
-        else:
-            roi = torch.zeros((b, c, c), dtype=torch.int32, device=dev)
-            msk = torch.ones((b, c, c), device=dev)
-            use_fg = torch.zeros((b,), dtype=torch.bool, device=dev)
-        fg_roi = (cam_t * (roi > 0)).sum((1, 2)) / float(c * c)
-        fg = torch.where(use_fg, fg_roi, cam_t.mean((1, 2)))
-        return {"raw_u8": raw_u8, "std_cam": cam_t,
-                "has_cam": torch.ones((b,), device=dev), "roi": roi,
-                "msk_bbox": msk, "fg_size": fg}
+        return {"raw_u8": raw_u8, **assemble_cam_planes(
+            cams_pool[cam_rows], cam_valid, ys, xs, flips, t, threshs, c,
+            r, roi_method, p_min_area, use_roi)}
 
     return assemble
 
@@ -134,17 +154,11 @@ class DeviceTrainFeed:
                                        dtype=torch.uint8, device=self.device)
         self.has_store = ds.cam_store is not None
         self.cams_pool = torch.zeros((1, 1, 1), device=self.device)
-        self.threshs = np.full(n, -1.0, np.float32)
+        self.threshs = ds.stored_threshs_255(frames)
         if self.has_store:
             self.cams_pool = torch.from_numpy(np.stack(
                 [ds.cam_store.load_cam(f) for f in frames]).astype(
                     np.float32)).to(self.device)
-            stored = ds.cam_store.thresholds
-            if ds.sl_tc_knn == 0 and stored is not None:
-                for i, fid in enumerate(frames):
-                    if fid in stored:
-                        # the store keeps [0, 1]; the ROI takes [0, 255]
-                        self.threshs[i] = stored[fid] * 255.0
         self.assemble = make_assemble(self.c, self.r, ds.roi_method,
                                       ds.p_min_area_roi, bool(ds.use_roi),
                                       self.has_store)
@@ -186,12 +200,8 @@ class DeviceTrainFeed:
         idxs, shard_valid = pipe._epoch_indices_valid(epoch, subset)
         clip_len = ds.clip_len
         target = pipe.batch_size * clip_len
-        k = (ds.decay_temp.sl_tc_knn if ds.decay_temp is not None
-             else ds.sl_tc_knn)
-        t_cap = 2 * int(k) + 1
-        t_heat = float(ds.decay_temp.t) if ds.decay_temp is not None else 0.0
-        if ds.sl_tc_knn == 0:
-            t_heat = 0.0          # heating only with a temporal window
+        t_cap = ds.cam_window_len()
+        t_heat = ds.cam_heat()
         steps = []
         all_ids: List[List[str]] = []
         for s in range(0, len(idxs), pipe.batch_size):

@@ -9,7 +9,13 @@ valid (B,)) plus `image_id`, a list of frame ids.  The pixels come from
 the device's image route: libjpeg on the host for a CPU device
 (data/native_loader.py, bit-equal to the JAX package's native path),
 nvJPEG on the card for a CUDA device (data/nvjpeg_loader.py).  The CAM
-side stays host numpy with the image's crop and flip.
+planes take the image's crop and flip.  On a CUDA device a batch whose
+stored CAMs share one shape crosses as its CAM windows (B, T, h, w) and
+its planes are made there in one batched pass (`card_cam_planes`, the
+card-resident feed's device_feed.assemble_cam_planes); on a CPU device,
+or for a batch of stored CAMs of several shapes, the host makes them
+frame by frame in numpy (WSOLVideoDataset.cam_roi_for, bit-equal to the
+JAX package's host path).
 
 The train data plane's three options (hparams h2d_transfer,
 decode_cache_mb, train_device_cache_mb):
@@ -27,8 +33,10 @@ decode_cache_mb, train_device_cache_mb):
 
 A streamed batch records the spans data.pixels (the decode, resize and
 crop; on the card the host's part of it) and, over a CAM store, data.cams
-(the host CAM side: the stored CAMs fused, resized, cropped, their ROI)
-on core/clock.TRACE.
+(the CAM side: the stored CAMs read, then fused, resized, cropped and
+their ROI taken on the host, or enqueued on the card) on
+core/clock.TRACE, with the counter data.cams_card or data.cams_host of
+the batch's frames by the route its CAM side took.
 """
 from __future__ import annotations
 
@@ -42,11 +50,14 @@ from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
-from tcam_wsol_video_tpu_torch.data.device_feed import DeviceTrainFeed
+from tcam_wsol_video_tpu_torch.data.device_feed import (DeviceTrainFeed,
+                                                       assemble_cam_planes)
 from tcam_wsol_video_tpu_torch.data.transforms import to_device
 
 _STACK_KEYS = ("image", "label", "raw_img", "std_cam", "has_cam",
                "seq_iter", "frm_iter", "roi", "msk_bbox", "fg_size")
+# the CAM planes of a batch, in cam_roi_for's order
+_CAM_KEYS = ("std_cam", "has_cam", "roi", "msk_bbox", "fg_size")
 
 
 def collate(items: List[dict]) -> Dict[str, np.ndarray]:
@@ -60,7 +71,7 @@ def collate(items: List[dict]) -> Dict[str, np.ndarray]:
 
 def _take(v, idx: np.ndarray):
     if isinstance(v, torch.Tensor):
-        return v[torch.from_numpy(idx).to(v.device)]
+        return v[to_device(idx, v.device)]
     return v[idx]
 
 
@@ -94,19 +105,77 @@ def compact_batch(batch: dict) -> dict:
     becomes raw_u8 (rounded half to even and clipped to [0, 255], uint8),
     std_cam becomes std_cam_u16 (round(clip(cam, 0, 1) * 65535), uint16),
     roi and msk_bbox become uint8.  Entries are numpy arrays or tensors;
-    the packed ones come back as tensors on their device."""
+    the packed ones come back as tensors on their device.  CAM planes
+    made on a card cross nothing, so they stay as they are, as the
+    card-resident feed's."""
     out = dict(batch)
     out.pop("image", None)
     raw = torch.as_tensor(out.pop("raw_img"))
     out["raw_u8"] = torch.round(raw).clamp_(0.0, 255.0).to(torch.uint8)
-    if "std_cam" in out:
+    if "std_cam" in out and not _on_card(out["std_cam"]):
         cam = torch.as_tensor(out.pop("std_cam"))
         out["std_cam_u16"] = torch.round(cam.clamp(0.0, 1.0) * 65535.0).to(
             torch.uint16)
     for k in ("roi", "msk_bbox"):
-        if k in out:
+        if k in out and not _on_card(out[k]):
             out[k] = torch.as_tensor(out[k]).to(torch.uint8)
     return out
+
+
+def _on_card(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.device.type != "cpu"
+
+
+def card_cam_planes(ds: WSOLVideoDataset, fids: List[str], ys, xs, flips,
+                    r: int, device: torch.device
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """The CAM planes of the frames `fids` under their crops (ys, xs) of
+    the (r, r) resize and flips, made on `device` from their stored CAM
+    windows (the feed's plan layout: (B, T) windows of
+    ds._temporal_frames, T = ds.cam_window_len()) by
+    device_feed.assemble_cam_planes, as cam_roi_for's planes.  The host
+    reads the windows and sends them with the draws and thresholds in
+    pinned, non-blocking copies, and syncs nothing.  None when the
+    stored CAMs differ in shape."""
+    t_cap = ds.cam_window_len()
+    wins = [ds._temporal_frames(fid)[:t_cap] for fid in fids]
+    cams = {f: ds.cam_store.load_cam(f) for win in wins for f in win}
+    if len({cam.shape for cam in cams.values()}) != 1:
+        return None
+    h, w = next(iter(cams.values())).shape
+    windows = np.zeros((len(fids), t_cap, h, w), np.float32)
+    valid = np.zeros((len(fids), t_cap), bool)
+    for m, win in enumerate(wins):
+        for k, f in enumerate(win):
+            windows[m, k] = cams[f]
+            valid[m, k] = True
+    draws = to_device(np.asarray([ys, xs, flips], np.int64), device)
+    return assemble_cam_planes(
+        to_device(windows, device), to_device(valid, device), draws[0],
+        draws[1], draws[2], ds.cam_heat(),
+        to_device(ds.stored_threshs_255(fids), device), ds.crop_size, r,
+        ds.roi_method, ds.p_min_area_roi, bool(ds.use_roi))
+
+
+def _empty_cam_planes(n: int, c: int) -> Dict[str, np.ndarray]:
+    """The planes of n frames without a stored CAM."""
+    return {"std_cam": np.zeros((n, c, c), np.float32),
+            "has_cam": np.zeros((n,), np.float32),
+            "roi": np.zeros((n, c, c), np.int32),
+            "msk_bbox": np.ones((n, c, c), np.float32),
+            "fg_size": np.zeros((n,), np.float32)}
+
+
+def host_cam_planes(ds: WSOLVideoDataset, fids: List[str], ys, xs, flips
+                    ) -> Dict[str, np.ndarray]:
+    """The same planes made frame by frame in host numpy
+    (WSOLVideoDataset.cam_roi_for)."""
+    planes = _empty_cam_planes(len(fids), ds.crop_size)
+    for m, fid in enumerate(fids):
+        for key, v in zip(_CAM_KEYS, ds.cam_roi_for(fid, ys[m], xs[m],
+                                                    bool(flips[m]))):
+            planes[key][m] = v
+    return planes
 
 
 class DataPipeline:
@@ -197,6 +266,20 @@ class DataPipeline:
         return nvjpeg_loader.load_batch(paths, resize, crop, xs, ys, flips,
                                         self.device)
 
+    def _cam_planes(self, fids: List[str], ys, xs, flips, r: int) -> dict:
+        """A streamed batch's CAM planes: on the card from the stored CAM
+        windows when the device is a card and the batch's stored CAMs
+        share one shape, else frame by frame on the host."""
+        planes = None
+        if self.device.type == "cuda":
+            planes = card_cam_planes(self.ds, fids, ys, xs, flips, r,
+                                     self.device)
+        if planes is not None:
+            TRACE.count("data.cams_card", len(fids))
+            return planes
+        TRACE.count("data.cams_host", len(fids))
+        return host_cam_planes(self.ds, fids, ys, xs, flips)
+
     def _epoch_native(self, epoch: int, idxs: np.ndarray,
                       shard_valid: np.ndarray,
                       target: int) -> Iterator[dict]:
@@ -236,32 +319,24 @@ class DataPipeline:
                 norm, raw = self._load_pixels(
                     [f"{ds.data_root}/{f}" for f in fids], r, c, xs, ys,
                     flips)
-            # a batch without stored CAMs has no CAM side: its empty
-            # planes are the wait's own time
-            with (TRACE.span("data.cams") if ds.cam_store is not None
-                  else contextlib.nullcontext()):
-                n = len(fids)
-                cams = np.zeros((n, c, c), np.float32)
-                has = np.zeros((n,), np.float32)
-                rois = np.zeros((n, c, c), np.int32)
-                msks = np.ones((n, c, c), np.float32)
-                fgs = np.zeros((n,), np.float32)
-                if ds.cam_store is not None:
-                    for m, fid in enumerate(fids):
-                        (cams[m], has[m], rois[m], msks[m],
-                         fgs[m]) = ds.cam_roi_for(fid, ys[m], xs[m],
-                                                  bool(flips[m]))
+            n = len(fids)
+            if ds.cam_store is None:
+                # no CAM side: the empty planes are the wait's own time
+                planes = _empty_cam_planes(n, c)
+            else:
+                with TRACE.span("data.cams"):
+                    planes = self._cam_planes(fids, ys, xs, flips, r)
             batch = {
                 "image": norm,
                 "label": np.asarray(labels, np.int32),
                 "raw_img": raw,
-                "std_cam": cams,
-                "has_cam": has,
+                "std_cam": planes["std_cam"],
+                "has_cam": planes["has_cam"],
                 "seq_iter": np.asarray(seqs, np.float32),
                 "frm_iter": np.asarray(frms, np.float32),
-                "roi": rois,
-                "msk_bbox": msks,
-                "fg_size": fgs,
+                "roi": planes["roi"],
+                "msk_bbox": planes["msk_bbox"],
+                "fg_size": planes["fg_size"],
                 "image_id": fids,
             }
             out = pad_batch_by_tiling(batch, target, clip_len)

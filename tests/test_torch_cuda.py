@@ -1,5 +1,6 @@
 """The CUDA kernels (exact bilateral filter, landmark K_nm build, the two
-Nystrom passes) against their plain versions, on the card.
+Nystrom passes) against their plain versions, and the card's routes of
+the steps and the data plane against the CPU's or the host's, on the card.
 
 Marked `cuda`: without a GPU these tests skip (the decision is taken in a
 fixture, never at import).  On a machine with a card:
@@ -463,6 +464,113 @@ def test_roi_and_compact_batches_on_the_card(card):
          for k, v in batch.items()}).items()})
     for k, w in want.items():
         assert torch.equal(got[k].cpu(), w), k
+
+
+# the streamed route's card CAM side against its host route
+# (tests/test_torch_dataplane.py's feed-against-stream tolerances)
+STREAM_CAM_ATOL = 2e-4
+STREAM_ROI_AGREE = 0.995
+STREAM_FG_ATOL = 2e-3
+
+
+def _stream_set(root: str, card):
+    """The port's synthetic set (48 train frames of 90 x 120, written by
+    nvJPEG) and a store of one 14 x 14 CAM of 1-3 Gaussian blobs a train
+    frame, with a stored threshold for each."""
+    import os
+    import numpy as np
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
+    from tcam_wsol_video_tpu_torch.data.folds import load_split_metadata
+    from tcam_wsol_video_tpu_torch.data.synthetic import \
+        make_synthetic_dataset
+    out = make_synthetic_dataset(root, device=card)
+    store = CamStore(os.path.join(root, "cams"))
+    md = load_split_metadata(out["metadata_root"], constants.TRAINSET)
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:14, 0:14].astype(np.float32)
+    th = {}
+    for shot in md.image_ids:
+        for f in sorted(os.listdir(os.path.join(out["data_root"], shot))):
+            cam = np.zeros((14, 14), np.float32)
+            for _ in range(rng.integers(1, 4)):
+                cy, cx = rng.uniform(1, 13, 2)
+                s = rng.uniform(0.8, 3.0)
+                cam = np.maximum(cam, rng.uniform(0.4, 1.0) * np.exp(
+                    -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s)))
+            store.save_cam(f"{shot}/{f}", cam)
+            th[f"{shot}/{f}"] = float(rng.uniform(0.2, 0.5))
+    store.save_thresholds(th)
+    return out, md, store
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["float", "uint8"])
+@pytest.mark.parametrize("knn", [0, 1])
+def test_streamed_cam_planes_on_the_card(card, tmp_path, monkeypatch, knn,
+                                         compact):
+    """A CUDA DataPipeline over a CAM store makes every batch's CAM planes
+    on the card (data.cams_card counts each frame) and streams the keys
+    and dtypes of its host route (the same pipeline with the card route
+    refused), with the same ids and pixels and the CAM planes within the
+    feed-against-stream tolerances.  knn 1 heats its windows; under
+    h2d_transfer=uint8 the host planes cross packed, the card's stay
+    unpacked, so the batches are compared as the step expands them."""
+    from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
+    from tcam_wsol_video_tpu_torch.core import constants
+    from tcam_wsol_video_tpu_torch.core.clock import TRACE
+    from tcam_wsol_video_tpu_torch.core.prng import KeyChain
+    from tcam_wsol_video_tpu_torch.data import pipeline
+    from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
+    from tcam_wsol_video_tpu_torch.data.transforms import PairedTransform
+    from tcam_wsol_video_tpu_torch.engine.steps import expand_compact_batch
+    out, md, store = _stream_set(str(tmp_path), card)
+    mode = constants.TIME_BEFORE_AFTER if knn else constants.TIME_INSTANT
+    decay = (DecayTemp(sl_tc_knn_t=4.0, sl_tc_min_t=1.0, sl_tc_knn=knn,
+                       sl_tc_knn_mode=mode, sl_tc_knn_epoch_switch_uniform=-1,
+                       sl_tc_seed_tech=constants.SEED_WEIGHTED)
+             if knn else None)
+    ds = WSOLVideoDataset(md, out["data_root"], constants.TRAINSET,
+                          constants.YTOV1, PairedTransform(40, 32, train=True),
+                          KeyChain(7), crop_size=32, cam_store=store,
+                          sl_tc_knn=knn, sl_tc_knn_mode=mode,
+                          decay_temp=decay, use_roi=True,
+                          roi_method=constants.ROI_LARGEST)
+
+    def epoch():
+        pipe = pipeline.DataPipeline(ds, 5, KeyChain(7), compact=compact,
+                                     device=card)
+        TRACE.take()
+        batches = [expand_compact_batch(b) for b in pipe.epoch(1)]
+        return batches, TRACE.take()[1]
+
+    card_batches, card_counts = epoch()
+    monkeypatch.setattr(pipeline, "card_cam_planes", lambda *a: None)
+    host_batches, host_counts = epoch()
+    assert card_counts.get("data.cams_card") == len(ds) == 12
+    assert "data.cams_host" not in card_counts
+    assert host_counts.get("data.cams_host") == len(ds)
+    assert "data.cams_card" not in host_counts
+    assert len(card_batches) == len(host_batches) == 3
+    for got, want in zip(card_batches, host_batches):
+        assert got["image_id"] == want["image_id"]
+        assert set(got) == set(want)
+        for k, w in want.items():
+            if k == "image_id":
+                continue
+            g = got[k]
+            assert g.device.type == "cuda" and g.dtype == w.dtype, k
+            assert g.shape == w.shape, k
+            if k not in ("std_cam", "roi", "msk_bbox", "fg_size"):
+                assert torch.equal(g, w), k
+        assert (got["std_cam"] - want["std_cam"]).abs().max() <= \
+            STREAM_CAM_ATOL
+        agree = (got["roi"] == want["roi"]).float().mean().item()
+        assert agree >= STREAM_ROI_AGREE, agree
+        assert (got["fg_size"] - want["fg_size"]).abs().max() <= \
+            STREAM_FG_ATOL
+        assert (got["has_cam"] == 1.0).all()
+    # 12 frames in batches of 5: the last one padded by tiling
+    assert sum(int(b["valid"].sum()) for b in card_batches) == len(ds)
 
 
 # the lockstep solve against cholesky_ex on ridge-regularized kernel

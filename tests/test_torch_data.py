@@ -208,6 +208,33 @@ def test_folds_match(synth):
         JCamStore(synth["cams"]).thresholds
 
 
+@pytest.mark.parametrize("dtype,order,version", [
+    (np.float32, "C", (1, 0)), (np.float64, "C", (1, 0)),
+    (np.float32, "F", (1, 0)), (np.float32, "C", (2, 0))],
+    ids=["f32", "f64", "fortran", "format2"])
+def test_cam_store_loads_what_np_load_reads(tmp_path, dtype, order,
+                                            version):
+    """load_cam's own .npy read (one header parse per distinct header)
+    gives np.load's arrays: the first file of a header through np.load,
+    the next ones from the kept layout; a CAM that is not 2-D raises."""
+    store = CamStore(str(tmp_path))
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        cam = np.asarray(rng.random((5, 7)), dtype=dtype, order=order)
+        with open(tmp_path / f"f{i}.npy", "wb") as f:
+            np.lib.format.write_array(f, cam, version=version)
+        got = store.load_cam(f"f{i}")
+        want = np.load(tmp_path / f"f{i}.npy")
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.isfortran(got) == np.isfortran(want)
+        assert got.flags.writeable
+        np.testing.assert_array_equal(got, want)
+    assert len(store._layouts) == 1
+    np.save(tmp_path / "flat.npy", np.zeros(4, dtype))
+    with pytest.raises(ValueError, match="shape"):
+        store.load_cam("flat")
+
+
 def test_class_ids_block_and_flow_forms(synth, tmp_path):
     flow = os.path.join(synth["metadata_root"], "class_id.yaml")
     with open(flow) as f:

@@ -9,6 +9,7 @@ for every frame.  Both packages decode through their own builds of
 native/fastloader.cpp, so pixels must be bit-equal.
 """
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +45,9 @@ from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
 from tcam_wsol_video_tpu_torch.cli import dump_cams
 from tcam_wsol_video_tpu_torch.cli import train as cli_train
 from tcam_wsol_video_tpu_torch.core import checkpoint as ckpt
+from tcam_wsol_video_tpu_torch.cams.temporal import DecayTemp
 from tcam_wsol_video_tpu_torch.core import constants as C
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.core.config import stage1_cam_recipe
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
 from tcam_wsol_video_tpu_torch.data import native_loader
@@ -53,7 +56,9 @@ from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
 from tcam_wsol_video_tpu_torch.data.device_feed import DeviceTrainFeed
 from tcam_wsol_video_tpu_torch.data.folds import load_split_metadata
 from tcam_wsol_video_tpu_torch.data.pipeline import (DataPipeline,
-                                                     compact_batch)
+                                                     card_cam_planes,
+                                                     compact_batch,
+                                                     host_cam_planes)
 from tcam_wsol_video_tpu_torch.data.transforms import PairedTransform
 from tcam_wsol_video_tpu_torch.engine import steps
 from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
@@ -274,6 +279,98 @@ def test_device_feed_replays_the_streamed_route(synth, knn):
         assert stats["data_route"] == "stream"
         assert stats["cache_hits"] + stats["cache_misses"] == 12
     assert pipe_s.epoch_stats()["cache_misses"] == 0    # nothing new
+
+
+@pytest.fixture(scope="module")
+def otsu_cams(synth, tmp_path_factory):
+    """The synthetic store's CAMs without its thresholds file."""
+    dst = str(tmp_path_factory.mktemp("otsu") / "cams")
+    shutil.copytree(synth["cams"], dst,
+                    ignore=shutil.ignore_patterns("roi_thresholds.txt"))
+    return dst
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("thresholds", ["stored", "otsu"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("knn,heat", [(0, False), (1, False), (1, True)],
+                         ids=["knn0", "knn1", "knn1_heat"])
+def test_card_cam_planes_match_the_host_route(synth, otsu_cams, knn, heat,
+                                              train, thresholds, method):
+    """The streamed route's card CAM side (pipeline.card_cam_planes over
+    device_feed.assemble_cam_planes, here on the CPU) against its host
+    route, cam_roi_for frame by frame, on every train frame with random
+    crops and flips (train) or the eval transform; within the tolerances
+    of the feed against the streamed route."""
+    mode = C.TIME_BEFORE_AFTER if knn else C.TIME_INSTANT
+    decay = (DecayTemp(sl_tc_knn_t=4.0, sl_tc_min_t=1.0, sl_tc_knn=knn,
+                       sl_tc_knn_mode=mode, sl_tc_knn_epoch_switch_uniform=-1,
+                       sl_tc_seed_tech=C.SEED_WEIGHTED) if heat else None)
+    cams = synth["cams"] if thresholds == "stored" else otsu_cams
+    ds = WSOLVideoDataset(
+        load_split_metadata(synth["metadata_root"], C.TRAINSET),
+        synth["data_root"], C.TRAINSET, C.YTOV1,
+        PairedTransform(RESIZE, CROP, train=train), KeyChain(7),
+        crop_size=CROP, cam_store=CamStore(cams), sl_tc_knn=knn,
+        sl_tc_knn_mode=mode, decay_temp=decay, use_roi=True,
+        roi_method=method, p_min_area_roi=0.05)
+    assert ds.cam_heat() == (4.0 if heat else 0.0)
+    fids = sorted(ds.frame_to_shot)
+    rng = np.random.default_rng(knn + 2 * train)
+    n = len(fids)
+    if train:
+        r = RESIZE
+        ys, xs = (rng.integers(0, r - CROP + 1, n).tolist() for _ in "yx")
+        flips = rng.integers(0, 2, n).tolist()
+        assert 0 < sum(flips) < n
+    else:
+        r = CROP
+        ys = xs = flips = [0] * n
+    got = card_cam_planes(ds, fids, ys, xs, flips, r, torch.device("cpu"))
+    want = host_cam_planes(ds, fids, ys, xs, flips)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == torch.from_numpy(w).dtype, k
+        assert got[k].shape == w.shape, k
+    np.testing.assert_array_equal(got["has_cam"].numpy(), want["has_cam"])
+    np.testing.assert_allclose(got["std_cam"].numpy(), want["std_cam"],
+                               atol=STREAM_CAM_ATOL, rtol=0)
+    agree = (got["roi"].numpy() == want["roi"]).mean()
+    assert agree >= STREAM_ROI_AGREE, agree
+    np.testing.assert_allclose(got["fg_size"].numpy(), want["fg_size"],
+                               atol=STREAM_FG_ATOL, rtol=0)
+    if agree == 1.0:
+        np.testing.assert_array_equal(got["msk_bbox"].numpy(),
+                                      want["msk_bbox"])
+
+
+def test_cpu_pipeline_keeps_the_host_cam_route(synth):
+    """On a CPU device every streamed batch over a store takes the host
+    CAM side, and the counter says so."""
+    _, ds = _datasets(synth, 1, C.ROI_LARGEST)
+    pipe = DataPipeline(ds, BATCH, KeyChain(7), device="cpu")
+    TRACE.take()
+    batches = list(pipe.epoch(0))
+    spans, counts = TRACE.take()
+    assert counts.get("data.cams_host") == len(ds) == 12
+    assert "data.cams_card" not in counts
+    assert spans["data.cams"][0] == len(batches) == 3
+
+
+def test_card_cam_planes_refuse_stored_cams_of_two_shapes(synth, tmp_path):
+    """A batch whose stored CAMs differ in shape gets no card planes (the
+    pipeline then takes the host route, which resizes each CAM alone)."""
+    cams = str(tmp_path / "cams")
+    shutil.copytree(synth["cams"], cams)
+    _, ds = _datasets(synth, 0, C.ROI_ALL)
+    ds.cam_store = CamStore(cams)
+    fids = sorted(ds.frame_to_shot)[:4]
+    ds.cam_store.save_cam(fids[1], np.ones((10, 10), np.float32))
+    args = (ds, fids, [0, 1, 2, 3], [3, 2, 1, 0], [0, 1, 0, 1], RESIZE)
+    assert card_cam_planes(*args, torch.device("cpu")) is None
+    assert host_cam_planes(*args[:5])["has_cam"].tolist() == [1.0] * 4
+    assert card_cam_planes(ds, fids[2:], [0, 1], [3, 2], [0, 1], RESIZE,
+                           torch.device("cpu")) is not None
 
 
 def test_device_feed_off_for_eval_and_over_budget(synth):
