@@ -9,6 +9,11 @@ TRACE is the process's recorder (one a process, as the profiler is):
   thread: the program opens them on its main thread only, and never
   across a generator's yield.
 - `TRACE.count(name, n)` adds to a counter.
+- `TRACE.tally(name, n)` adds an integer tensor's sum to a counter kept on
+  its device, without reading it (a CUDA graph captures the add, and each
+  replay adds again); `TRACE.fetch()`, inside the wait for the device that
+  ends an epoch, enqueues its copy to the host, and the next take() counts
+  what it gained, under the counters, in every epoch that added to it.
 - `TRACE.device(name, ms)` takes spans timed on the device's clock
   (SpanClock below), read at a sync the program makes anyway.
 - `TRACE.take()` aggregates what was recorded into {name: [count, ms,
@@ -89,6 +94,9 @@ class Recorder:
         self.step: Optional[Tuple[int, Optional[int]]] = None
         self._open: List[Span] = []
         self._device: List[Tuple[str, List[float]]] = []
+        # device counters: name -> [sum on the device, its host copy,
+        # the value the last take() read]
+        self._tallies: Dict[str, list] = {}
 
     def span(self, name: str) -> Span:
         return Span(self, name)
@@ -106,6 +114,46 @@ class Recorder:
     def count(self, name: str, n: int = 1) -> None:
         self.counts[name] = self.counts.get(name, 0) + n
 
+    def tally(self, name: str, n: torch.Tensor) -> None:
+        """Adds the sum of `n`, an integer or boolean tensor, to the device
+        counter `name`, on n's device and without reading it.  The counter
+        is made at its first add, which must not be under a capture."""
+        t = self._tallies.get(name)
+        if t is None:
+            if n.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"device counter {name!r} made under a "
+                                   "CUDA graph capture")
+            t = self._tallies[name] = [
+                torch.zeros((), dtype=torch.int64, device=n.device),
+                torch.zeros((), dtype=torch.int64, pin_memory=n.is_cuda), 0]
+        t[0].add_(n.sum())
+        self.counts.setdefault(name, 0)
+
+    def fetch(self) -> None:
+        """Enqueues each device counter's copy to the host; the wait for the
+        device that follows makes it readable to take()."""
+        for acc, host, _ in self._tallies.values():
+            if acc.is_cuda:
+                host.copy_(acc, non_blocking=True)
+
+    def counters(self) -> tuple:
+        """The counters as they stand, for rewind(): the host counts and
+        a device copy of each device counter."""
+        return dict(self.counts), {k: t[0].clone()
+                                   for k, t in self._tallies.items()}
+
+    def rewind(self, saved: tuple) -> None:
+        """The counters put back as counters() saw them (device counters
+        made since, to zero)."""
+        counts, tallies = saved
+        self.counts.clear()
+        self.counts.update(counts)
+        for name, t in self._tallies.items():
+            if name in tallies:
+                t[0].copy_(tallies[name])
+            else:
+                t[0].zero_()
+
     def device(self, name: str, ms: List[float]) -> None:
         """Spans of `name` timed on the device's clock (their self ms is
         their ms)."""
@@ -113,7 +161,9 @@ class Recorder:
 
     def take(self) -> Tuple[Dict[str, List[float]], Dict[str, int]]:
         """({name: [count, ms, self ms]} of the closed spans and the
-        device spans, the counters); clears them.  Open spans stay."""
+        device spans, the counters: a device counter added to since the
+        last take() with its gain up to the last fetch()); clears them.
+        Open spans stay."""
         spans: Dict[str, List[float]] = {}
         still_open = []
         for s in self.spans:
@@ -130,6 +180,11 @@ class Recorder:
             agg[1] += sum(ms)
             agg[2] += sum(ms)
         counts = self.counts
+        for name, t in self._tallies.items():
+            if name in counts:
+                value = int(t[1] if t[0].is_cuda else t[0])
+                counts[name] += value - t[2]
+                t[2] = value
         self.spans, self.counts, self._device = still_open, {}, []
         return spans, counts
 

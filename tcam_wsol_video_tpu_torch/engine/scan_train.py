@@ -28,7 +28,11 @@ the captured step updates in place); the train state is then put back as
 it was, so the warm-up trains nothing.  A capture that fails raises:
 nothing retries eagerly.  A kernel wrapper counts its launches when the
 graph captures it; the counts are taken back after the capture and added
-once per replay (ops/cuda/build.COUNTERS).
+once per replay (ops/cuda/build.COUNTERS), and so are the recorder's
+counters made inside the captured steps (core/clock.TRACE, e.g. the
+landmark filter's crf.knm_builds), so that they count steps run, not
+captures.  A device counter (TRACE.tally) needs none of that: its add is
+in the graph.  The eager warm-up puts both back as they were.
 
 On core/clock.TRACE an epoch records the spans data.wait (the plan, the
 pool fill and the plan's upload), dispatch.capture (a graph's capture,
@@ -181,6 +185,7 @@ class ChunkedEpochRunner:
             done += k
         TRACE.step = (epoch, None)
         with TRACE.span("epoch.sync"):
+            TRACE.fetch()
             chunk_ms = clock.millis()
         TRACE.device("device.gap", clock.gaps())
         with TRACE.span("dispatch.release"):
@@ -245,7 +250,10 @@ class ChunkedEpochRunner:
         tensors = _state_tensors(state)
         saved = [t.detach().clone() for t in tensors]
         step, counts = state.step, [(c.kernel, c.plain) for c in COUNTERS]
+        traced = TRACE.counters()
         gen_before = self._gens[0].get_state()
+        # the copies above are made before the step runs
+        stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             self._call(state, 1, switches, seed_weighted, t_heat)
         torch.cuda.current_stream(self.device).wait_stream(stream)
@@ -260,12 +268,14 @@ class ChunkedEpochRunner:
         state.step = step
         for c, (kn, pl) in zip(COUNTERS, counts):
             c.kernel, c.plain = kn, pl
+        TRACE.rewind(traced)
         torch.cuda.synchronize(self.device)
         self._warm = True
 
     def _capture(self, state, k, switches, seed_weighted, t_heat) -> tuple:
         """A CUDA graph of k steps on the static inputs.  Returns (graph,
-        its output metrics, each counter's launches in one replay)."""
+        its output metrics, each counter's launches in one replay, the
+        recorder's counts in one replay)."""
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         if not self._warm:
@@ -277,25 +287,33 @@ class ChunkedEpochRunner:
             for g in self._gens[:k]:
                 graph.register_generator_state(g)
         step, before = state.step, [c.kernel for c in COUNTERS]
+        traced = TRACE.counters()
+        counts = traced[0]
         try:
             with torch.cuda.graph(graph, stream=stream):
                 metrics = self._call(state, k, switches, seed_weighted,
                                      t_heat)
             per_replay = [c.kernel - b for c, b in zip(COUNTERS, before)]
+            counted = {name: n - counts.get(name, 0)
+                       for name, n in TRACE.counts.items()
+                       if n != counts.get(name)}
         finally:
             # the capture ran nothing: the step count and the launch
             # counts are those before it
             for c, b in zip(COUNTERS, before):
                 c.kernel = b
+            TRACE.rewind(traced)
             state.step = step
         self.captures += 1
-        return graph, metrics, per_replay
+        return graph, metrics, per_replay, counted
 
     def _replay(self, state, captured, k) -> List[dict]:
-        graph, metrics, per_replay = captured
+        graph, metrics, per_replay, counted = captured
         graph.replay()
         for c, n in zip(COUNTERS, per_replay):
             c.kernel += n
+        for name, n in counted.items():
+            TRACE.count(name, n)
         state.step += k
         self.replays += 1
         # the outputs live in the graph's pool: copies outlive the next

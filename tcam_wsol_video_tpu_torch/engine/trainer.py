@@ -449,6 +449,7 @@ class Trainer:
                                 step=self.state.step)
         TRACE.step = (epoch, None)
         with TRACE.span("epoch.sync"):
+            TRACE.fetch()
             step_ms = clock.millis()
         TRACE.device("device.gap", clock.gaps())
         return {"metrics": out, "step_ms": step_ms}

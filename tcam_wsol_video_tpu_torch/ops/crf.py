@@ -26,6 +26,11 @@ min(B, 32)), TCAM_KNM_DTYPE (K_nm storage, float32 or bfloat16) and
 TCAM_LMK_SOLVER ("cho", the default, or "lockstep").  TCAM_KNM_BUILD and
 TCAM_LMK_UNROLL have no counterpart: the card always builds K_nm with its
 kernel, and eager torch already runs the groups as an unrolled loop.
+
+The landmark filter is the span crf.landmarks of core/clock.TRACE (at
+each step eagerly, at the capture on the chunked route); its K builds
+count crf.knm_builds and crf.knm_mb (ops/cuda/landmarks.build_knm), its
+failed factorizations crf.solve_failed (ops/linalg.py).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.ops import linalg
 from tcam_wsol_video_tpu_torch.ops.cuda import bilateral, landmarks
 from tcam_wsol_video_tpu_torch.ops.interpolate import (resize_bilinear,
@@ -210,9 +216,10 @@ def bilateral_filter_batch(images: torch.Tensor, segs: torch.Tensor,
     feats = make_bilateral_features(images, sigma_rgb, sigma_xy)
     vals = segs.reshape(b, h * w, k).float().contiguous()
     if method == "landmarks":
-        idx = _landmark_indices_on(h, w, n_landmarks, feats.device)
-        feats = (feats - feats.mean(dim=1, keepdim=True)).contiguous()
-        out = gaussian_filter_apply_landmarks(feats, vals, idx)
+        with TRACE.span("crf.landmarks"):
+            idx = _landmark_indices_on(h, w, n_landmarks, feats.device)
+            feats = (feats - feats.mean(dim=1, keepdim=True)).contiguous()
+            out = gaussian_filter_apply_landmarks(feats, vals, idx)
     elif method == "rff":
         # one image at a time: the (P, chunk) cos/sin transients stay small
         feats = feats - feats.mean(dim=1, keepdim=True)

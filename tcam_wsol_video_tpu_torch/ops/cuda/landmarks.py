@@ -20,9 +20,11 @@ no pad landmarks.
 A CUDA tensor goes to the kernels (or raises); only a CPU tensor takes
 the plain versions, which are the tests' oracle.  Launch counters:
 `knm_counts`, `rhs_counts` and `out_counts` (kernel launches, and calls of
-build_knm_plain, nystrom_rhs_plain and nystrom_out_plain).  Features are
-taken as given: the callers centre them per image, which keeps the
-fp32 norm expansion of the distance well conditioned (on a card, keep
+build_knm_plain, nystrom_rhs_plain and nystrom_out_plain); each
+build_knm call also counts crf.knm_builds and the MB it writes,
+crf.knm_mb, on core/clock.TRACE.  Features are taken as given: the
+callers centre them per image, which keeps the fp32 norm expansion of
+the distance well conditioned (on a card, keep
 torch.backends.cuda.matmul.allow_tf32 off for the plain versions).
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ import functools
 
 import torch
 
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.ops import linalg
 from tcam_wsol_video_tpu_torch.ops.cuda import build
 from tcam_wsol_video_tpu_torch.ops.cuda.build import LaunchCounter
@@ -115,10 +118,12 @@ def build_knm(feats: torch.Tensor, fm: torch.Tensor,
     _check(feats, fm)
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {OUT_DTYPES}")
-    if feats.device.type == "cpu":
-        return build_knm_plain(feats, fm, out_dtype)
     b, p, _ = feats.shape
     m = fm.shape[1]
+    TRACE.count("crf.knm_builds")
+    TRACE.count("crf.knm_mb", b * p * m * out_dtype.itemsize / 1e6)
+    if feats.device.type == "cpu":
+        return build_knm_plain(feats, fm, out_dtype)
     f = build.pad_last(feats, _KERNEL_D)
     g = build.pad_last(fm, _KERNEL_D)
     out = torch.empty((b, p, m), dtype=out_dtype, device=feats.device)

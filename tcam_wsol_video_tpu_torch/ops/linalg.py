@@ -3,11 +3,15 @@ ops/linalg.py and of the solver choice of ops/crf.py).
 
 Two solvers compute the same alpha, as in the JAX package:
 - "cho" (the default, TCAM_LMK_SOLVER unset or "cho"): the library's
-  batched Cholesky, the counterpart of JAX's jax.scipy
-  cho_factor/cho_solve.  `cholesky_ex` keeps the train step free of a
-  host synchronisation on the error check: the factorization's `info`
-  stays on the device, and a caller that wants it (chip_smoke.py)
-  collects it inside `record_info()` and checks it is 0 afterwards.
+  batched Cholesky and two batched triangular solves, the counterpart of
+  JAX's jax.scipy cho_factor/cho_solve; a CUDA graph captures it.
+  `cholesky_ex` keeps the train step free of a host synchronisation on
+  the error check: the factorization's `info` stays on the device, and a
+  caller that wants it (chip_smoke.py) collects it inside `record_info()`
+  and checks it is 0 afterwards.
+  The factorizations whose `info` is not 0 are summed on the device as
+  the counter crf.solve_failed (core/clock.TRACE.tally), read at the
+  epoch's end.
 - "lockstep" (TCAM_LMK_SOLVER=lockstep, and always between the two
   passes of the fused Nystrom kernels, as JAX's nystrom_filter_pallas
   solves there): `batched_block_cholesky_solve`, a blocked Cholesky in
@@ -28,6 +32,8 @@ import os
 from typing import List
 
 import torch
+
+from tcam_wsol_video_tpu_torch.core.clock import TRACE
 
 NB = 128  # block size of the lockstep solver (JAX: the TPU lane width)
 SOLVERS = ("cho", "lockstep")
@@ -58,11 +64,18 @@ def landmark_solver() -> str:
 
 def batched_cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve a x = b for symmetric positive definite a (G, M, M) and
-    b (G, M, K), fp32 -> (G, M, K)."""
+    b (G, M, K), fp32 -> (G, M, K): a = L L^T, then L y = b and L^T x = y.
+
+    The two triangular solves are torch.cholesky_solve's, written out: on
+    a card at G > 1 cholesky_solve calls MAGMA, whose batched solve aborts
+    under a CUDA graph capture (its pointer arrays are set up by a device
+    allocation), while solve_triangular takes cuBLAS's batched trsm."""
     chol, info = torch.linalg.cholesky_ex(a)
+    TRACE.tally("crf.solve_failed", info != 0)
     for rec in _recorders:
         rec.append(info)
-    return torch.cholesky_solve(b, chol)
+    y = torch.linalg.solve_triangular(chol, b, upper=False)
+    return torch.linalg.solve_triangular(chol.mT, y, upper=True)
 
 
 def _chol_unblocked(a: torch.Tensor) -> torch.Tensor:
