@@ -28,11 +28,15 @@ def heat_cam(cam: torch.Tensor, t: float) -> torch.Tensor:
 
 
 def fuse_temporal_max(cams: torch.Tensor, valid: torch.Tensor,
-                      t: float = 0.0) -> torch.Tensor:
+                      t=0.0) -> torch.Tensor:
     """cams (B, T, H, W) neighbour stacks, valid (B, T) bool -> (B, H, W):
     each valid CAM heated when t > 0, then the max over T; a row without
-    a valid CAM gives 0."""
-    h = heat_cam(cams, max(t, 1e-12)) if t > 0 else cams
+    a valid CAM gives 0.  t a float, or a 0-d tensor read on the device:
+    a heat that is on (the chunked route hands one over only then)."""
+    if isinstance(t, torch.Tensor):
+        h = heat_cam(cams, t.clamp_min(1e-12))
+    else:
+        h = heat_cam(cams, max(t, 1e-12)) if t > 0 else cams
     h = torch.where(valid[..., None, None], h, float("-inf"))
     out = h.amax(1)
     return torch.where(torch.isfinite(out), out, 0.0)

@@ -56,7 +56,7 @@ from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_skimage255
 from tcam_wsol_video_tpu_torch.parallel import mesh as pmesh
 
 
-def assemble_cam_planes(windows, cam_valid, ys, xs, flips, t: float,
+def assemble_cam_planes(windows, cam_valid, ys, xs, flips, t,
                         threshs, c: int, r: int, roi_method: str,
                         p_min_area: float, use_roi: bool
                         ) -> Dict[str, torch.Tensor]:
@@ -96,11 +96,12 @@ def make_assemble(c: int, r: int, roi_method: str, p_min_area: float,
     ys, xs, flips, t, threshs) -> the batch planes, on the pools' device:
     raw_u8 (B, c, c, 3) uint8 and assemble_cam_planes' planes of the
     windows cams_pool[cam_rows].  rows (B,) and cam_rows (B, T) are int64
-    pool rows, cam_valid (B, T) bool, t the heat (0 = none), threshs (B,)
-    stored thresholds in [0, 255] (< 0: Otsu's)."""
+    pool rows, cam_valid (B, T) bool, t the heat (a float, 0 = none, or
+    a 0-d tensor on the pools' device: a heat that is on, read there),
+    threshs (B,) stored thresholds in [0, 255] (< 0: Otsu's)."""
 
     def assemble(frames_pool, cams_pool, rows, cam_rows, cam_valid, ys, xs,
-                 flips, t: float, threshs) -> Dict[str, torch.Tensor]:
+                 flips, t, threshs) -> Dict[str, torch.Tensor]:
         raw_u8 = crop_flip(frames_pool, c, ys, xs, flips, rows=rows)
         b = rows.shape[0]
         dev = frames_pool.device

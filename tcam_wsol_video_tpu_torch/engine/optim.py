@@ -37,7 +37,13 @@ def param_group_labels(model: nn.Module, encoder_name: str
 
 class DecayAllSGD(torch.optim.SGD):
     """torch SGD that also decays (and moves the momentum of) parameters
-    that received no gradient, as the optax chain does."""
+    that received no gradient, as the optax chain does.
+
+    A group's lr may be a 0-d tensor (the chunked route's device scalar,
+    engine/scan_train.py): torch's SGD reads a tensor rate back to the
+    host, which a CUDA graph cannot capture, so then every group is
+    updated here (_step_on_device) with torch's multi-tensor formula, the
+    rate read on the device."""
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -45,7 +51,43 @@ class DecayAllSGD(torch.optim.SGD):
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-        return super().step(closure)
+        if not any(isinstance(g["lr"], torch.Tensor)
+                   for g in self.param_groups):
+            return super().step(closure)
+        if closure is not None:
+            raise ValueError("no closure with a device learning rate")
+        for group in self.param_groups:
+            self._step_on_device(group)
+        return None
+
+    def _step_on_device(self, group: dict) -> None:
+        """torch's _multi_tensor_sgd on the group (weight decay, momentum,
+        dampening, nesterov) at its 0-d tensor lr.  The last add, params -
+        lr g, is an addcmul of the negated rate: a multiply-add, as
+        torch's add with a float alpha."""
+        params = group["params"]
+        grads = [p.grad for p in params]
+        wd, mom = group["weight_decay"], group["momentum"]
+        damp = group["dampening"]
+        if wd != 0:
+            grads = torch._foreach_add(grads, params, alpha=wd)
+        if mom != 0:
+            bufs = []
+            for p in params:
+                st = self.state[p]
+                if st.get("momentum_buffer") is None:
+                    # a zero trace updates as torch's first step does
+                    # (0 m + g = g; build_optimizer allows no dampening)
+                    st["momentum_buffer"] = torch.zeros_like(p)
+                bufs.append(st["momentum_buffer"])
+            torch._foreach_mul_(bufs, mom)
+            torch._foreach_add_(bufs, grads, alpha=1 - damp)
+            if group["nesterov"]:
+                torch._foreach_add_(grads, bufs, alpha=mom)
+            else:
+                grads = bufs
+        neg_lr = -group["lr"]
+        torch._foreach_addcmul_(params, [neg_lr] * len(params), grads)
 
 
 def build_optimizer(args, model: nn.Module, lr: float) -> DecayAllSGD:

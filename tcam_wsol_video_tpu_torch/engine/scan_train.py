@@ -17,10 +17,21 @@ The streams are the per-step route's: step i's seeder noise is the first
 draw of KeyChain("train", epoch, i), as the train step would draw it,
 and its dropout masks come from KeyChain("dropout", epoch, i) (a graph
 registers a generator per step slot and seeds it before each replay).
-What a graph bakes in is fixed for an epoch (the learning rate, ELB t,
-loss switches, seed technique, CAM heat): each epoch captures its graphs
-anew, one for K steps and one for a shorter tail chunk (JAX retraces for
-the tail).
+
+A graph is kept for the run.  The values that change from epoch to epoch
+are read from device memory: the runner owns 0-d fp32 tensors for each
+param group's learning rate, ELB's t and the CAM heat, fills them with
+the epoch's values before its first dispatch, and the steps it builds
+read them (the optimizer's groups and the train state hold them while a
+chunk is captured or run eagerly; engine/optim.DecayAllSGD, losses/elb,
+data/device_feed.make_assemble).  What still changes the program is a
+graph's key (program_key): the chunk length, the shapes and dtypes of the
+plan's static inputs, the loss switches, the seed technique and whether
+the heat is on.  An epoch first frees the kept graphs whose keys its
+chunks do not need (stale_graphs), then replays the kept ones and
+captures the others: one graph of K steps and one of a shorter tail
+chunk (JAX retraces for the tail).  The static inputs (plan rows, seeder
+noise, dropout generators) keep their addresses for the run.
 
 Before the first capture one eager iteration warms the libraries up (the
 kernels' builds, cuBLAS/cuDNN handles, the momentum buffers and gradients
@@ -35,18 +46,21 @@ captures.  A device counter (TRACE.tally) needs none of that: its add is
 in the graph.  The eager warm-up puts both back as they were.
 
 On core/clock.TRACE an epoch records the spans data.wait (the plan, the
-pool fill and the plan's upload), dispatch.capture (a graph's capture,
-its chunk's inputs filled first), dispatch.warmup (the eager warm-up
-inside the first capture), dispatch.replay (a chunk's dispatch: its
-inputs filled, then the replay on the card or the K eager steps on the
-CPU, whose assemblies are feed.assemble), epoch.sync (the wait for the
-device at the end) and dispatch.release (the graphs freed), and the
-device gaps between consecutive chunks (device.gap, from the chunks'
-SpanClock marks).
+pool fill and the plan's upload), dispatch.release (stale graphs freed,
+at a key change), dispatch.capture (a graph's capture, its chunk's
+inputs filled first), dispatch.warmup (the eager warm-up inside the
+first capture), dispatch.replay (a chunk's dispatch: its inputs filled,
+then the replay on the card or the K eager steps on the CPU, whose
+assemblies are feed.assemble) and epoch.sync (the wait for the device at
+the end), the device gaps between consecutive chunks (device.gap, from
+the chunks' SpanClock marks), and on the card the counters
+dispatch.captures (graphs captured) and dispatch.kept (chunks replayed
+on a graph kept from an earlier epoch).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import contextlib
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -69,11 +83,12 @@ def make_chunk_runner(assemble, train_step):
     dropout_generators, switches, seed_weighted, t_heat, k) -> the k
     steps' metrics dicts.  plan: {name: (>= k, target[, T]) tensor} on the
     pools' device, row j the j-th step's; gumbel: (>= k, B, 2, P) seeder
-    noise or None (no seeds); dropout_generators: k generators or Nones."""
+    noise or None (no seeds); dropout_generators: k generators or Nones;
+    t_heat: the CAM heat, a float or a 0-d tensor (make_assemble)."""
 
     def run_chunk(state: TrainState, frames_pool, cams_pool, plan: dict,
                   gumbel: Optional[torch.Tensor], dropout_generators: list,
-                  switches, seed_weighted: bool, t_heat: float,
+                  switches, seed_weighted: bool, t_heat,
                   k: int) -> List[dict]:
         out = []
         for j in range(k):
@@ -89,6 +104,31 @@ def make_chunk_runner(assemble, train_step):
         return out
 
     return run_chunk
+
+
+def program_key(shapes: tuple, switches, seed_weighted: bool,
+                heat_on: bool) -> tuple:
+    """What a captured chunk bakes in besides its length and the values
+    it reads from device memory: the static inputs' (name, per-step shape,
+    dtype), the loss switches, the seed technique and whether the CAM heat
+    is on."""
+    return (tuple(shapes), tuple(float(s) for s in switches),
+            bool(seed_weighted), bool(heat_on))
+
+
+def chunk_lengths(n: int, chunk: int) -> List[int]:
+    """The lengths of an n-step epoch's chunks: K each, then the tail."""
+    return [min(chunk, n - done) for done in range(0, n, chunk)]
+
+
+def stale_graphs(kept: Iterable[tuple], needed: Iterable[tuple]
+                 ) -> List[tuple]:
+    """The keys (k, program_key) of the kept graphs that an epoch whose
+    chunks need the keys `needed` frees before it captures: every kept
+    key it does not need.  A needed key that is kept replays; one that is
+    not is captured."""
+    needed = set(needed)
+    return [key for key in kept if key not in needed]
 
 
 def _state_tensors(state: TrainState) -> List[torch.Tensor]:
@@ -121,6 +161,19 @@ class ChunkedEpochRunner:
         self.cuda = self.device.type == "cuda"
         self._warm = False
         self._live_dropout = False
+        # (k, program_key) -> (the epoch that captured it, _capture's tuple)
+        self._graphs: Dict[tuple, tuple] = {}
+        # the static inputs, made for the plan's shapes (_shapes)
+        self._shapes: Optional[tuple] = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._gumbel: Optional[torch.Tensor] = None
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in range(self.chunk)]
+        # the device scalars the steps read: each group's lr, ELB's t,
+        # the CAM heat
+        self._lr: List[torch.Tensor] = []
+        self._elb_t = torch.zeros((), device=self.device)
+        self._heat = torch.zeros((), device=self.device)
         self.replays = 0
         self.captures = 0
 
@@ -146,37 +199,43 @@ class ChunkedEpochRunner:
         n = len(all_ids)
         if n == 0:
             return {"steps": 0, "metrics": [], "step_ms": []}
-        b = plan["rows"].shape[1]
-        c = feed.c
-        self._static = {k: v[:self.chunk].clone() for k, v in
-                        dev_plan.items()}
-        self._gumbel = (torch.zeros((self.chunk, b, 2, c * c),
-                                    device=self.device)
-                        if self.needs_seeds else None)
-        self._gens = [torch.Generator(device=self.device)
-                      for _ in range(self.chunk)]
-        graphs: Dict[int, tuple] = {}
+        shapes = tuple((name, tuple(v.shape[1:]), v.dtype)
+                       for name, v in dev_plan.items())
+        program = program_key(shapes, switches, seed_weighted, t_heat > 0)
+        needed = [(k, program) for k in chunk_lengths(n, self.chunk)]
+        self.release(stale_graphs(self._graphs, needed))
+        if shapes != self._shapes:
+            self._make_static(dev_plan)
+            self._shapes = shapes
+        heat = self._set_scalars(state, t_heat)
         clock = SpanClock(self.device)
         metrics: List[dict] = []
         ks: List[int] = []
+        captured = kept = 0
         done = 0
         while done < n:
             k = min(self.chunk, n - done)
+            key = (k, program)
             TRACE.step = (epoch, key_offset + done)
-            if self.cuda and k not in graphs:
+            if self.cuda and key not in self._graphs:
                 # the warm-up runs on the chunk's inputs; the fill below
                 # seeds the generators again after it
                 with TRACE.span("dispatch.capture"):
                     self._fill(dev_plan, done, k, keychain, epoch,
                                key_offset)
-                    graphs[k] = self._capture(state, k, switches,
-                                              seed_weighted, t_heat)
+                    self._graphs[key] = (epoch, self._capture(
+                        state, k, switches, seed_weighted, heat))
+                captured += 1
             with TRACE.span("dispatch.replay"):
                 self._fill(dev_plan, done, k, keychain, epoch, key_offset)
                 begin = clock.start()
-                out = (self._replay(state, graphs[k], k) if self.cuda
-                       else self._eager(state, k, switches, seed_weighted,
-                                        t_heat))
+                if self.cuda:
+                    made, graph = self._graphs[key]
+                    kept += made != epoch
+                    out = self._replay(state, graph, k)
+                else:
+                    out = self._eager(state, k, switches, seed_weighted,
+                                      heat)
                 clock.stop(begin)
             ks.append(k)
             metrics += out
@@ -184,15 +243,67 @@ class ChunkedEpochRunner:
                 on_chunk(done, k, out)
             done += k
         TRACE.step = (epoch, None)
+        if self.cuda:
+            TRACE.count("dispatch.captures", captured)
+            TRACE.count("dispatch.kept", kept)
         with TRACE.span("epoch.sync"):
             TRACE.fetch()
             chunk_ms = clock.millis()
         TRACE.device("device.gap", clock.gaps())
-        with TRACE.span("dispatch.release"):
-            del graphs
         return {"steps": n, "metrics": metrics,
                 "step_ms": [ms / k for ms, k in zip(chunk_ms, ks)
                             for _ in range(k)]}
+
+    def release(self, keys: Optional[List[tuple]] = None) -> None:
+        """Frees the kept graphs of `keys` (all of them by default), with
+        the memory their pools hold."""
+        keys = list(self._graphs) if keys is None else keys
+        if keys:
+            with TRACE.span("dispatch.release"):
+                for key in keys:
+                    del self._graphs[key]
+
+    def _make_static(self, dev_plan: dict) -> None:
+        """The static inputs for the plan's shapes: K rows of each plan
+        entry and the seeder noise of K steps."""
+        self._static = {name: torch.zeros((self.chunk, *v.shape[1:]),
+                                          dtype=v.dtype, device=self.device)
+                        for name, v in dev_plan.items()}
+        b = dev_plan["rows"].shape[1]
+        c = self.feed.c
+        self._gumbel = (torch.zeros((self.chunk, b, 2, c * c),
+                                    device=self.device)
+                        if self.needs_seeds else None)
+
+    def _set_scalars(self, state: TrainState, t_heat: float):
+        """Fills the device scalars with the epoch's values.  Returns the
+        heat the chunks assemble with: the heat's scalar when it is on, 0
+        otherwise."""
+        groups = state.optimizer.param_groups
+        if not self._lr:
+            self._lr = [torch.zeros((), device=self.device) for _ in groups]
+        for t, group in zip(self._lr, groups):
+            t.fill_(group["lr"])
+        self._elb_t.fill_(state.elb_t)
+        self._heat.fill_(t_heat)
+        return self._heat if t_heat > 0 else 0.0
+
+    @contextlib.contextmanager
+    def _device_scalars(self, state: TrainState):
+        """The optimizer's rates and the state's ELB t swapped for the
+        device scalars while the steps are built (captured, or run
+        eagerly), and put back after."""
+        groups = state.optimizer.param_groups
+        rates, elb_t = [g["lr"] for g in groups], state.elb_t
+        for group, t in zip(groups, self._lr):
+            group["lr"] = t
+        state.elb_t = self._elb_t
+        try:
+            yield
+        finally:
+            for group, lr in zip(groups, rates):
+                group["lr"] = lr
+            state.elb_t = elb_t
 
     def _fill(self, dev_plan, start: int, k: int, keychain,
               epoch: int, key_offset: int = 0) -> None:
@@ -213,9 +324,11 @@ class ChunkedEpochRunner:
     def _call(self, state, k, switches, seed_weighted, t_heat,
               runner=None) -> List[dict]:
         feed = self.feed
-        return (runner or self.run_chunk)(
-            state, feed.frames_pool, feed.cams_pool, self._static,
-            self._gumbel, self._gens[:k], switches, seed_weighted, t_heat, k)
+        with self._device_scalars(state):
+            return (runner or self.run_chunk)(
+                state, feed.frames_pool, feed.cams_pool, self._static,
+                self._gumbel, self._gens[:k], switches, seed_weighted,
+                t_heat, k)
 
     def _eager(self, state, k, switches, seed_weighted, t_heat):
         """The CPU's chunk: k eager iterations, each assembly a span."""

@@ -33,12 +33,13 @@ keys are computed from them (_timing_keys).
 The dispatch route (JAX's rule, engine/scan_train.engages): with the
 card-resident feed on and train_dispatch_chunk K > 0, an epoch runs K
 steps a dispatch (engine/scan_train.ChunkedEpochRunner: a CUDA graph of
-K steps on the card); the student seed source and recomputed CAMs keep
-the per-step loop.  Under the chunked route a step's time is its chunk's
-over K, the data wait is the plan and pool fill spread over the steps,
-rolling checkpoints land on chunk boundaries and the log_every records
-come from the per-step losses at the epoch's end.  Each epoch record
-names its `dispatch` route and K.
+K steps on the card, kept across epochs until the program changes, and
+freed when an epoch takes the per-step loop); the student seed source
+and recomputed CAMs keep the per-step loop.  Under the chunked route a
+step's time is its chunk's over K, the data wait is the plan and pool
+fill spread over the steps, rolling checkpoints land on chunk boundaries
+and the log_every records come from the per-step losses at the epoch's
+end.  Each epoch record names its `dispatch` route and K.
 
 C_BOX (engine/cbox_steps.py) trains DenseBoxNet against the frozen
 stage-1 classifier given as `classifier`, one step a dispatch (JAX keeps
@@ -356,6 +357,9 @@ class Trainer:
             run = self._run_chunked_epoch(epoch, feed, switches,
                                           seed_weighted)
         else:
+            if self._chunk_runner is not None:
+                # the kept graphs' memory, which this route does not replay
+                self._chunk_runner.release()
             run = self._run_per_step_epoch(epoch, switches, seed_weighted,
                                            student)
         comm_ms = self.mesh.clock.millis()

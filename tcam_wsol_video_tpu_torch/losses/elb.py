@@ -11,9 +11,13 @@ import numpy as np
 import torch
 
 
-def _elb_terms(fx: torch.Tensor, t: float) -> torch.Tensor:
-    # a fill on fx's device, not a host copy (CUDA graphs capture it)
-    t = torch.full((), float(t), dtype=torch.float32, device=fx.device)
+def _elb_terms(fx: torch.Tensor, t) -> torch.Tensor:
+    # t a float, or a 0-d tensor read on the device (the chunked route's,
+    # which a kept CUDA graph reads each epoch); a float is filled on fx's
+    # device, not copied from the host (CUDA graphs capture the fill)
+    t = (t.to(device=fx.device, dtype=torch.float32)
+         if isinstance(t, torch.Tensor)
+         else torch.full((), float(t), dtype=torch.float32, device=fx.device))
     fx = fx.float()
     ct = -1.0 / (t * t)
     log_branch = -(1.0 / t) * torch.log((-fx).clamp_min(1e-30))

@@ -670,10 +670,10 @@ def card_set(tmp_path_factory):
     return root, out["metadata_root"]
 
 
-def _feed_trainer(card, card_set, chunk: int, outd: str):
+def _feed_trainer(card, card_set, chunk: int, outd: str, **flags):
     """A Trainer over the card-resident feed (uint8 batches, exact CRF,
-    fp32, the small ResNet) at train_dispatch_chunk `chunk`; two builds
-    start from the same weights."""
+    fp32, the small ResNet) at train_dispatch_chunk `chunk`, with `flags`
+    over those; two builds start from the same weights."""
     from tcam_wsol_video_tpu_torch.cli import train as cli_train
     from tcam_wsol_video_tpu_torch.core.config import (finalize,
                                                        stage2_tcam_recipe)
@@ -682,13 +682,13 @@ def _feed_trainer(card, card_set, chunk: int, outd: str):
     from tcam_wsol_video_tpu_torch.models import resnet
     from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
     root, meta = card_set
-    args = finalize(stage2_tcam_recipe(
+    args = finalize(stage2_tcam_recipe(**{**dict(
         crop_size=64, resize_size=80, batch_size=2, eval_batch_size=8,
         compute_dtype="float32", data_root=root, metadata_root=meta,
         std_cams_folder=root + "/cams", h2d_transfer="uint8",
         train_device_cache_mb=64, train_dispatch_chunk=chunk, log_every=1,
         checkpoint_save=0, outd=outd, max_epochs=1,
-        cam_curve_interval=0.05))
+        cam_curve_interval=0.05), **flags}))
     kc = KeyChain(0)
     args, train_pipe, eval_pipes = cli_train.build_data(args, kc, card)
     torch.manual_seed(0)
@@ -734,6 +734,68 @@ def test_graphed_chunks_match_eager_steps(card, card_set, tmp_path,
     assert len(per[3]) == len(gr[3]) == 6
     assert abs(gr[3][0] - per[3][0]) <= 1e-6 * abs(per[3][0])
     assert abs(gr[0]["loss"] - per[0]["loss"]) <= 1e-3 * abs(per[0]["loss"])
+
+
+# the learning rate halves each epoch (a step schedule of step size 1),
+# ELB's t anneals x 1.5 each epoch, and the CAM heat is on (a temporal
+# window of one frame each side)
+_EPOCH_SCHEDULE = dict(lr_scheduler="mystep", step_size=1, gamma=0.5,
+                       elb_mulcoef=1.5, sl_tc_knn=1,
+                       sl_tc_knn_mode="before-after", max_epochs=3)
+
+
+def _feed_epochs(card, card_set, chunk: int, outd: str, epochs: int,
+                 **flags):
+    tr = _feed_trainer(card, card_set, chunk, outd,
+                       **{**_EPOCH_SCHEDULE, **flags})
+    return [tr.train_epoch(e) for e in range(epochs)], tr
+
+
+@pytest.mark.parametrize("flags,captures,kept", [
+    ({}, [2, 0, 0], [0, 2, 2]),
+    ({"max_sizepos_tc_start_ep": 2}, [2, 0, 2], [0, 2, 0]),
+], ids=["kept", "switch_on_at_2"])
+def test_kept_graphs_match_per_step_over_epochs(card, card_set, tmp_path,
+                                               monkeypatch, flags, captures,
+                                               kept):
+    """3 epochs of 6 steps at chunk 4 (graphs of 4 steps and a tail of 2)
+    against the per-step loop, the learning rate, ELB t and heat read from
+    the runner's device scalars: the graphs of epoch 0 replay in epochs 1
+    and 2, and a loss switch that turns on at epoch 2 captures again.
+    Each epoch's loss within JAX's rtol 1e-3; cuDNN's deterministic
+    algorithms, as test_graphed_chunks_match_eager_steps."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    per, _ = _feed_epochs(card, card_set, 0, str(tmp_path / "per"), 3,
+                          **flags)
+    gr, tr = _feed_epochs(card, card_set, 4, str(tmp_path / "gr"), 3,
+                          **flags)
+    runner = tr._chunk_runner
+    assert (runner.captures, runner.replays) == (sum(captures), 6)
+    assert [r["counts"]["dispatch.captures"] for r in gr] == captures
+    assert [r["counts"]["dispatch.kept"] for r in gr] == kept
+    assert [r["capture_ms"] > 0 for r in gr] == [c > 0 for c in captures]
+    assert len({r["elb_t"] for r in gr}) == 3
+    for a, b in zip(per, gr):
+        assert a["steps"] == b["steps"] == 6
+        assert abs(b["loss"] - a["loss"]) <= 1e-3 * abs(a["loss"])
+
+
+def test_kept_graphs_on_the_landmark_route(card, card_set, tmp_path,
+                                           monkeypatch):
+    """The landmark CRF (kernel 4, the batched ridge solve) over 2 epochs
+    whose second replays the graphs of the first: no failed
+    factorization, and the epoch losses as the per-step loop's."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    flags = dict(crf_impl="landmarks", crf_n_landmarks=1024)
+    per, _ = _feed_epochs(card, card_set, 0, str(tmp_path / "per"), 2,
+                          **flags)
+    gr, tr = _feed_epochs(card, card_set, 4, str(tmp_path / "gr"), 2,
+                          **flags)
+    assert [r["counts"]["dispatch.kept"] for r in gr] == [0, 2]
+    assert tr._chunk_runner.captures == 2
+    assert [r["counts"]["crf.solve_failed"] for r in gr] == [0, 0]
+    for a, b in zip(per, gr):
+        assert abs(b["loss"] - a["loss"]) <= 1e-3 * abs(a["loss"])
 
 
 def test_device_sweep_on_the_card_matches_the_host_sweep(card):
