@@ -42,11 +42,10 @@ from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.core.config import TCAMConfig, parse_args
 from tcam_wsol_video_tpu_torch.core.logger import ExpLogger
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
-from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
+from tcam_wsol_video_tpu_torch.data.image_route import route_for
 from tcam_wsol_video_tpu_torch.data.transforms import (normalize_u8,
-                                                       normalize_u8_scaled,
-                                                       pil_resize_frames)
+                                                       normalize_u8_scaled)
 from tcam_wsol_video_tpu_torch.engine.steps import make_classifier_cam_fn
 from tcam_wsol_video_tpu_torch.metrics.otsu_np import otsu_np
 from tcam_wsol_video_tpu_torch.models.factory import create_model_from_args
@@ -67,13 +66,9 @@ def dump_threshold_np(cam_lo: np.ndarray, crop_size: int) -> float:
 def load_pixels(paths: Sequence[str], crop: int, device: torch.device
                 ) -> torch.Tensor:
     """The dump's frames, resized whole to crop x crop: (N, crop, crop, 3)
-    uint8 on `device` (libjpeg on the host for the CPU, nvJPEG on the
-    card)."""
-    if device.type == "cpu":
-        return pil_resize_frames([torch.from_numpy(native_loader.decode_u8(
-            [p], *native_loader.jpeg_hw(p))[0]) for p in paths],
-            (crop, crop))
-    return nvjpeg_loader.load_resized_u8(list(paths), (crop, crop), device)
+    uint8 on `device`, by its image route (data/image_route.py)."""
+    return route_for(device).load_resized_u8(list(paths), (crop, crop),
+                                             device)
 
 
 def train_frames(args: TCAMConfig) -> Tuple[str, List[Tuple[str, int]]]:

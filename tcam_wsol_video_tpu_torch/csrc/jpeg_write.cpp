@@ -6,19 +6,16 @@
 // route is csrc/nvjpeg_codec.cu.
 //
 // C ABI (ctypes):
-//   int write_jpeg_rgb(const char* path, const unsigned char* rgb,
-//                      int h, int w, int quality);
 //   int encode_jpeg_rgb(const unsigned char* rgb, int h, int w, int quality,
 //                       unsigned char* out, size_t cap, size_t* n);
-// rgb is h * w * 3 interleaved.  Returns 0, 1 when the file cannot be
-// opened (encode_jpeg_rgb: when the JPEG's *n bytes exceed cap), 2 when
-// libjpeg reports an error.
+// rgb is h * w * 3 interleaved.  Returns 0, 1 when the JPEG's *n bytes
+// exceed cap, 2 when libjpeg reports an error.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC jpeg_write.cpp \
 //            -ljpeg -o libjpeg_write.so
 
 #include <csetjmp>
-#include <cstdio>
+#include <cstdio>  // jpeglib.h needs FILE
 #include <cstdlib>
 #include <cstring>
 
@@ -81,27 +78,6 @@ int encode_jpeg_rgb(const unsigned char* rgb, int h, int w, int quality,
   if (rc == 0) std::memcpy(out, buf, size);
   std::free(buf);
   return rc;
-}
-
-int write_jpeg_rgb(const char* path, const unsigned char* rgb, int h, int w,
-                   int quality) {
-  FILE* volatile f = std::fopen(path, "wb");
-  if (!f) return 1;
-  jpeg_compress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = on_jpeg_error;
-  if (setjmp(jerr.jump)) {
-    jpeg_destroy_compress(&cinfo);
-    std::fclose(f);
-    return 2;
-  }
-  jpeg_create_compress(&cinfo);
-  jpeg_stdio_dest(&cinfo, f);
-  compress_rows(&cinfo, rgb, h, w, quality);
-  jpeg_destroy_compress(&cinfo);
-  std::fclose(f);
-  return 0;
 }
 
 }  // extern "C"

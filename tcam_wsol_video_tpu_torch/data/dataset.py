@@ -127,8 +127,9 @@ class WSOLVideoDataset:
         right = frames[min(i + 1, n - 1):min(i + k + 1, n)]
         return left, right
 
-    def _temporal_frames(self, frame_id: str) -> List[str]:
-        """Frames whose stored CAMs fuse into this frame's seed CAM."""
+    def cam_window(self, frame_id: str) -> List[str]:
+        """The frames whose stored CAMs fuse into this frame's seed CAM,
+        in time order: at most cam_window_len() of them."""
         k = self.sl_tc_knn
         mode = self.sl_tc_knn_mode
         if self.decay_temp is not None:
@@ -204,7 +205,7 @@ class WSOLVideoDataset:
             return None
         t = self.cam_heat()
         fused = None
-        for fid in self._temporal_frames(frame_id):
+        for fid in self.cam_window(frame_id):
             c = self.cam_store.load_cam(fid)
             if t > 0:
                 c = heat_cam_np(c, t)

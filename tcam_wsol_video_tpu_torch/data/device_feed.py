@@ -6,9 +6,10 @@ epochs; only the sampling does (frame per shot, crop, flip).  So they stay
 on the pipeline's device:
 
 - a frames pool (N, R, R, 3) uint8 holds every train frame at resize
-  resolution, filled the first time a frame is sampled by the route's
-  decode_resize_u8 (libjpeg on the host for a CPU device, nvJPEG on the
-  card), so each frame is decoded once in the whole run;
+  resolution, filled the first time a frame is sampled by the image
+  route's decode_resize_u8 (data/image_route.py: libjpeg on the host for
+  a CPU device, nvJPEG on the card), so each frame is decoded once in the
+  whole run;
 - a CAM pool (N, h', w') float32 holds the stored stage-1 CAMs, and the
   stored thresholds (x 255, used only when sl_tc_knn == 0) stay beside it;
 - each epoch uploads its sampling plan once (pool rows, crop offsets,
@@ -21,11 +22,11 @@ on the pipeline's device:
   h2d_transfer=uint8 (`raw_u8`; the train step derives the normalized
   input), with the CAM planes unpacked.
 
-The sampling streams are the streamed pipeline's (KeyChain("aug", split,
-epoch, index, frame): ys, then xs, then the flip), so turning the feed on
-replays the same epochs; the pixels equal the decoded-frame cache's bit
-for bit.  On a CUDA device the streamed route makes its CAM planes with
-the same assemble_cam_planes; on a CPU device it keeps the host numpy of
+The epoch's sampling is the streamed pipeline's own plan
+(DataPipeline.plan_batches), so turning the feed on replays the same
+epochs; the pixels equal the decoded-frame cache's bit for bit.  On a
+CUDA device the streamed route makes its CAM planes with the same
+assemble_cam_planes; on a CPU device it keeps the host numpy of
 WSOLVideoDataset.cam_roi_for, from which the feed's differs by float
 rounding (~1e-7), which can flip a pixel on a threshold.  The feed is
 off for eval splits and over budget; the pipeline then streams, and says
@@ -49,7 +50,6 @@ from tcam_wsol_video_tpu_torch.cams.roi import roi_batch
 from tcam_wsol_video_tpu_torch.cams.temporal import fuse_temporal_max
 from tcam_wsol_video_tpu_torch.core import constants
 from tcam_wsol_video_tpu_torch.core.clock import TRACE
-from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.transforms import crop_flip, to_device
 from tcam_wsol_video_tpu_torch.ops.interpolate import resize_bilinear
 from tcam_wsol_video_tpu_torch.ops.otsu import otsu_threshold_skimage255
@@ -166,25 +166,19 @@ class DeviceTrainFeed:
         self.enabled = True
 
     # ------------------------------------------------------- pool filling
-    def _decode_resize_u8(self, fids: List[str]) -> torch.Tensor:
-        """The frames at resize resolution, uint8, on the pool's device:
-        libjpeg on the host for the CPU, nvJPEG on the card."""
-        paths = [f"{self.ds.data_root}/{f}" for f in fids]
-        if self.device.type == "cpu":
-            return torch.from_numpy(native_loader.decode_resize_u8(paths,
-                                                                   self.r))
-        return nvjpeg_loader.decode_resize_u8(paths, self.r, self.device)
-
     def _ensure_resident(self, rows: np.ndarray) -> None:
-        """Decode the frames of `rows` that are not in the pool yet.  On
-        the card the decode runs on nvJPEG's side stream and the insert on
-        the current stream, after the work that reads the pool."""
+        """Decode the frames of `rows` that are not in the pool yet, by
+        the pipeline's image route.  On the card the decode runs on
+        nvJPEG's side stream and the insert on the current stream, after
+        the work that reads the pool."""
         missing = ~self.resident[rows]
         TRACE.count("feed.misses", int(missing.sum()))
         miss = np.unique(rows[missing])
         if miss.size == 0:
             return
-        frames = self._decode_resize_u8([self.frames[i] for i in miss])
+        frames = self.pipe.codec.decode_resize_u8(
+            [f"{self.ds.data_root}/{self.frames[i]}" for i in miss], self.r,
+            self.device)
         self.frames_pool[to_device(miss, self.device)] = frames
         self.resident[miss] = True
         self.decodes[miss] += 1
@@ -192,69 +186,38 @@ class DeviceTrainFeed:
 
     # ------------------------------------------------------------- epochs
     def _plan_epoch(self, epoch: int, subset: Optional[np.ndarray] = None):
-        """The epoch's sampling plan on the host: per-step arrays of pool
-        rows, crop offsets, flips, labels, CAM windows and thresholds,
-        drawn from the streamed pipeline's KeyChain streams.  Returns
+        """The epoch's sampling plan on the host: the pipeline's batch
+        plans (DataPipeline.plan_batches) stacked, their frames mapped to
+        pool rows, CAM windows and stored thresholds and tiled.  Returns
         (plan {name: (n_steps, target[, T]) array}, per-step frame ids,
         the heat t)."""
-        ds, pipe = self.ds, self.pipe
-        idxs, shard_valid = pipe._epoch_indices_valid(epoch, subset)
-        clip_len = ds.clip_len
-        target = pipe.batch_size * clip_len
+        ds = self.ds
         t_cap = ds.cam_window_len()
         t_heat = ds.cam_heat()
         steps = []
         all_ids: List[List[str]] = []
-        for s in range(0, len(idxs), pipe.batch_size):
-            chunk = idxs[s:s + pipe.batch_size]
-            if pipe.drop_remainder and len(chunk) < pipe.batch_size:
-                break
-            fids, labels, seqs, frms, ys, xs, flips = ([] for _ in range(7))
-            for idx in chunk:
-                ids = ds.sample_ids(int(idx))
-                lab = ds.md.labels[ds.md.image_ids[int(idx)]]
-                for fi, fid in enumerate(ids):
-                    fids.append(fid)
-                    labels.append(lab)
-                    seqs.append(np.float32(idx))
-                    frms.append(np.float32(fi))
-                    rng = ds.kc.numpy_rng("aug", ds.split, epoch, int(idx),
-                                          fi)
-                    ys.append(int(rng.integers(0, self.r - self.c + 1)))
-                    xs.append(int(rng.integers(0, self.r - self.c + 1)))
-                    flips.append(bool(rng.random() < ds.transform.hflip_p))
-            n = len(fids)
-            valid = np.zeros(target, bool)
-            valid[:n] = np.repeat(shard_valid[s:s + len(chunk)], clip_len)
-            if n < target:
-                # whole clips repeated, as pipeline.pad_batch_by_tiling
-                n_clips = n // clip_len
-                sel = [(i % n_clips) * clip_len + j
-                       for i in range(target // clip_len)
-                       for j in range(clip_len)]
-                fids, labels, seqs, frms, ys, xs, flips = (
-                    [v[i] for i in sel]
-                    for v in (fids, labels, seqs, frms, ys, xs, flips))
-            rows = np.asarray([self.row_of[f] for f in fids], np.int64)
-            cam_rows = np.zeros((target, t_cap), np.int64)
-            cam_valid = np.zeros((target, t_cap), bool)
-            threshs = np.full(target, -1.0, np.float32)
+        for p in self.pipe.plan_batches(epoch, subset):
+            ids = p["ids"]
+            rows = np.asarray([self.row_of[f] for f in ids], np.int64)
+            cam_rows = np.zeros((len(ids), t_cap), np.int64)
+            cam_valid = np.zeros((len(ids), t_cap), bool)
             if self.has_store:
-                for m, fid in enumerate(fids):
-                    for w, wid in enumerate(
-                            ds._temporal_frames(fid)[:t_cap]):
+                for m, fid in enumerate(ids):
+                    for w, wid in enumerate(ds.cam_window(fid)):
                         cam_rows[m, w] = self.row_of[wid]
                         cam_valid[m, w] = True
-                threshs = self.threshs[rows]
-            steps.append({
-                "rows": rows, "cam_rows": cam_rows, "cam_valid": cam_valid,
-                "ys": np.asarray(ys, np.int64), "xs": np.asarray(xs,
-                                                                 np.int64),
-                "flips": np.asarray(flips, bool), "threshs": threshs,
-                "label": np.asarray(labels, np.int32),
-                "seq_iter": np.asarray(seqs, np.float32),
-                "frm_iter": np.asarray(frms, np.float32), "valid": valid})
-            all_ids.append(fids)
+            step = {"rows": rows, "cam_rows": cam_rows,
+                    "cam_valid": cam_valid, "ys": p["ys"], "xs": p["xs"],
+                    "flips": p["flips"], "threshs": self.threshs[rows],
+                    "label": p["label"], "seq_iter": p["seq_iter"],
+                    "frm_iter": p["frm_iter"]}
+            tile = p["tile"]
+            if tile is not None:
+                step = {k: v[tile] for k, v in step.items()}
+                ids = [ids[i] for i in tile]
+            step["valid"] = p["valid"]
+            steps.append(step)
+            all_ids.append(ids)
         if not steps:
             return {}, [], t_heat
         plan = {key: np.stack([st[key] for st in steps]) for key in steps[0]}

@@ -1,16 +1,19 @@
-"""ctypes binding of native/fastloader.cpp, the host image route: libjpeg
-decode, half-pixel bilinear resize, crop, flip and ImageNet normalization
-of a batch in one OpenMP call (port of data/native_loader.py, signatures
-of its load_batch); the decode to uint8 frames at resize resolution
+"""ctypes binding of native/fastloader.cpp and csrc/jpeg_write.cpp, the
+host image route (data/image_route.py): libjpeg decode, half-pixel
+bilinear resize, crop, flip and ImageNet normalization of a batch in one
+OpenMP call (port of data/native_loader.py, signatures of its
+load_batch); the decode to uint8 frames at resize resolution
 (`decode_resize_u8`) and `DecodedFrameCache`, an LRU of those frames that
-crops them with fastloader's crop_batch_u8; and a JPEG file's size from
-its header (the CAM dump's host route decodes each frame at its own
-size).
+crops them with fastloader's crop_batch_u8; whole frames decoded at their
+own size (from the JPEG header, `jpeg_hw`) and resized with Pillow's
+bilinear arithmetic (the CAM dump's pixels); and libjpeg's encoder.  The
+route's functions return tensors on the CPU, zero-copy views of the
+numpy arrays the C code fills.
 
-The library is built from the checkout's native/fastloader.cpp with the
-JAX binding's g++ flags (core/nativebuild.py), so both packages decode the
-same bits.  It needs libjpeg; where that is missing the build raises.  The
-card's route is data/nvjpeg_loader.py.
+The libraries are built from the checkout's sources with the JAX
+binding's g++ flags (core/nativebuild.py), so both packages decode the
+same bits.  They need libjpeg; where that is missing the build raises.
+The card's route is data/nvjpeg_loader.py.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from tcam_wsol_video_tpu_torch.core import nativebuild
+from tcam_wsol_video_tpu_torch.data.transforms import pil_bilinear_resize
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -53,8 +58,8 @@ def _paths(paths: List[str]):
 def load_batch(paths: List[str], resize: int, crop: int,
                xs: Optional[np.ndarray] = None,
                ys: Optional[np.ndarray] = None,
-               flips: Optional[np.ndarray] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+               flips: Optional[np.ndarray] = None, device="cpu"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode, resize to (resize, resize), crop at (ys, xs), flip and
     normalize a batch.  Returns (normalized (N, crop, crop, 3), raw
     (N, crop, crop, 3) in [0, 255]), float32."""
@@ -71,7 +76,7 @@ def load_batch(paths: List[str], resize: int, crop: int,
         out_norm.ctypes.data_as(_FP), out_raw.ctypes.data_as(_FP))
     if rc != 0:
         raise IOError(f"failed to decode {paths[rc - 1]}")
-    return out_norm, out_raw
+    return torch.from_numpy(out_norm), torch.from_numpy(out_raw)
 
 
 def decode_u8(paths: List[str], height: int, width: int) -> np.ndarray:
@@ -86,11 +91,25 @@ def decode_u8(paths: List[str], height: int, width: int) -> np.ndarray:
     return buf
 
 
-def decode_resize_u8(paths: List[str], resize: int) -> np.ndarray:
+def decode_resize_u8(paths: List[str], resize: int, device="cpu"
+                     ) -> torch.Tensor:
     """Decode and resize to (N, resize, resize, 3) uint8, each value the
     float resize rounded half up: the frames of the decoded-frame cache
     and of the card-resident train feed's pool."""
-    return decode_u8(paths, resize, resize)
+    return torch.from_numpy(decode_u8(paths, resize, resize))
+
+
+def load_resized_u8(paths: List[str], size: Tuple[int, int], device="cpu"
+                    ) -> torch.Tensor:
+    """Decode each file at its own size and resize the whole frame to
+    `size` as Pillow's BILINEAR does: (N, h, w, 3) uint8."""
+    return torch.cat([pil_bilinear_resize(
+        torch.from_numpy(decode_u8([p], *jpeg_hw(p))), size) for p in paths])
+
+
+def frame_cache(budget_mb: int, device="cpu") -> "DecodedFrameCache":
+    """The decoded-frame cache of the host route."""
+    return DecodedFrameCache(budget_mb)
 
 
 class DecodedFrameCache:
@@ -113,7 +132,7 @@ class DecodedFrameCache:
         self.misses = 0
 
     def _decode(self, paths: List[str], resize: int) -> list:
-        return [f.copy() for f in decode_resize_u8(paths, resize)]
+        return [f.copy() for f in decode_u8(paths, resize, resize)]
 
     def _crop(self, frames: list, resize: int, crop: int, xs, ys, flips):
         n = len(frames)
@@ -128,7 +147,7 @@ class DecodedFrameCache:
                              flips.ctypes.data_as(_UP),
                              out_norm.ctypes.data_as(_FP),
                              out_raw.ctypes.data_as(_FP))
-        return out_norm, out_raw
+        return torch.from_numpy(out_norm), torch.from_numpy(out_raw)
 
     def load_batch(self, paths: List[str], resize: int, crop: int,
                    xs, ys, flips):
@@ -186,3 +205,27 @@ def jpeg_hw(path: str) -> Tuple[int, int]:
         i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
     raise IOError(f"{path}: no start-of-frame segment")
 
+
+@functools.lru_cache(maxsize=1)
+def _jpeg_write_lib() -> ctypes.CDLL:
+    lib = nativebuild.load("jpeg_write")
+    lib.encode_jpeg_rgb.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+    lib.encode_jpeg_rgb.restype = ctypes.c_int
+    return lib
+
+
+def encode(img: np.ndarray, quality: int, device="cpu") -> bytes:
+    """(h, w, 3) uint8 RGB -> baseline JPEG bytes, encoded by libjpeg."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, _ = img.shape
+    cap = 2 * img.size + 65536
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_size_t()
+    rc = _jpeg_write_lib().encode_jpeg_rgb(img.ctypes.data, h, w, quality,
+                                           out.ctypes.data, cap,
+                                           ctypes.byref(n))
+    if rc != 0:
+        raise IOError(f"libjpeg could not encode a {h}x{w} frame ({rc})")
+    return out[:n.value].tobytes()

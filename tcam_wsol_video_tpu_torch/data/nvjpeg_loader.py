@@ -1,6 +1,8 @@
-"""The card's image route: nvJPEG decode (csrc/nvjpeg_codec.cu, bound with
-ctypes) into device memory, then the resize, crop, flip and ImageNet
-normalization of native/fastloader.cpp as PyTorch ops on the card.
+"""The card's image route (data/image_route.py): nvJPEG decode and encode
+(csrc/nvjpeg_codec.cu, bound with ctypes) in device memory, then the
+resize, crop, flip and ImageNet normalization of native/fastloader.cpp as
+PyTorch ops on the card.  Every batch decodes on a side stream, frames of
+one size together (`_decode_by_size`).
 
 `resize_crop_normalize` repeats fastloader's arithmetic: half-pixel
 bilinear sampling positions computed in float32 as the C code computes
@@ -26,7 +28,7 @@ import torch
 from tcam_wsol_video_tpu_torch.data import native_loader
 from tcam_wsol_video_tpu_torch.data.transforms import (crop_flip,
                                                        imagenet_stats,
-                                                       pil_resize_frames)
+                                                       pil_bilinear_resize)
 from tcam_wsol_video_tpu_torch.ops.cuda import build
 
 _VP = ctypes.c_void_p
@@ -154,55 +156,68 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def _decode_by_size(paths: List[str], device, fn
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Decode each file with nvJPEG and apply fn(frames (n, h, w, 3)
+    uint8, ids) to the frames of each size (ids indexes their places in
+    `paths`), on a stream of its own, so that the decodes never wait for
+    the work queued on the caller's stream.  Returns fn's tensors with
+    the rows of every size in their places; the caller's stream waits for
+    the side stream, and each tensor is recorded on it."""
+    device = _cuda(device)
+    main = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    with torch.cuda.stream(side):
+        frames = [decode(p, device) for p in paths]
+        groups: dict = {}
+        for i, f in enumerate(frames):
+            groups.setdefault(tuple(f.shape), []).append(i)
+        if len(groups) == 1:
+            out = fn(torch.stack(frames), slice(None))
+        else:
+            parts = [(ids, fn(torch.stack([frames[i] for i in ids]), ids))
+                     for ids in groups.values()]
+            out = tuple(t.new_empty((len(frames), *t.shape[1:]))
+                        for t in parts[0][1])
+            for ids, res in parts:
+                for o, t in zip(out, res):
+                    o[ids] = t
+    main.wait_stream(side)
+    for t in out:
+        t.record_stream(main)
+    return out
+
+
 def load_batch(paths: List[str], resize: int, crop: int,
                xs: Sequence[int], ys: Sequence[int], flips: Sequence[int],
                device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """fastloader's load_batch on the card: (normalized, raw) tensors
-    (N, crop, crop, 3) on `device`.  The batch is decoded and resized on a
-    stream of its own, so that it never waits for the work queued on the
-    caller's stream; the caller's stream waits for it.  Frames of one size
-    are resized together."""
-    device = _cuda(device)
-    main = torch.cuda.current_stream(device)
-    with torch.cuda.stream(_side_stream(device)):
-        frames = [decode(p, device) for p in paths]
-        if len({tuple(f.shape) for f in frames}) == 1:
-            norm, raw = resize_crop_normalize(torch.stack(frames), resize,
-                                              crop, xs, ys, flips)
-        else:
-            parts = [resize_crop_normalize(f[None], resize, crop, [x], [y],
-                                           [fl])
-                     for f, x, y, fl in zip(frames, xs, ys, flips)]
-            norm = torch.cat([p[0] for p in parts])
-            raw = torch.cat([p[1] for p in parts])
-    main.wait_stream(_side_stream(device))
-    norm.record_stream(main)
-    raw.record_stream(main)
-    return norm, raw
+    (N, crop, crop, 3) on `device`, decoded and resized on the side
+    stream, frames of one size together."""
+    xs, ys, flips = (np.asarray(v) for v in (xs, ys, flips))
+    return _decode_by_size(paths, device, lambda f, ids: (
+        resize_crop_normalize(f, resize, crop, xs[ids], ys[ids],
+                              flips[ids])))
 
 
 def decode_resize_u8(paths: List[str], resize: int, device="cuda"
                      ) -> torch.Tensor:
     """fastloader's decode_resize_batch on the card: each file decoded by
     nvJPEG, resized with fastloader's taps and rounded half up (v + 0.5
-    truncated) -> (N, resize, resize, 3) uint8 on `device`.  Decoded on
-    the side stream of load_batch; the caller's stream waits for it."""
-    device = _cuda(device)
-    main = torch.cuda.current_stream(device)
-    with torch.cuda.stream(_side_stream(device)):
-        frames = [decode(p, device) for p in paths]
-        out = torch.empty((len(paths), resize, resize, 3), dtype=torch.uint8,
-                          device=device)
-        groups: dict = {}
-        for i, f in enumerate(frames):
-            groups.setdefault(tuple(f.shape), []).append(i)
-        for ids in groups.values():
-            v = resize_fastloader(torch.stack([frames[i] for i in ids]),
-                                  resize)
-            out[ids] = (v + 0.5).clamp_(max=255.0).to(torch.uint8)
-    main.wait_stream(_side_stream(device))
-    out.record_stream(main)
-    return out
+    truncated) -> (N, resize, resize, 3) uint8 on `device`, on the side
+    stream."""
+    return _decode_by_size(paths, device, lambda f, ids: (
+        (resize_fastloader(f, resize) + 0.5).clamp_(max=255.0).to(
+            torch.uint8),))[0]
+
+
+def load_resized_u8(paths: List[str], size: Tuple[int, int],
+                    device="cuda") -> torch.Tensor:
+    """Decode each file on the card and resize the whole frame to `size`
+    as Pillow's BILINEAR does: (N, h, w, 3) uint8 on `device`, on the
+    side stream."""
+    return _decode_by_size(paths, device, lambda f, ids: (
+        pil_bilinear_resize(f, size),))[0]
 
 
 class DeviceFrameCache(native_loader.DecodedFrameCache):
@@ -222,16 +237,6 @@ class DeviceFrameCache(native_loader.DecodedFrameCache):
         return crop_normalize_u8(torch.stack(frames), crop, xs, ys, flips)
 
 
-def load_resized_u8(paths: List[str], size: Tuple[int, int],
-                    device="cuda") -> torch.Tensor:
-    """Decode each file on the card and resize the whole frame to `size`
-    as Pillow's BILINEAR does: (N, h, w, 3) uint8 on `device`.  Decoded
-    and resized on the side stream of load_batch; the caller's stream
-    waits for it."""
-    device = _cuda(device)
-    main = torch.cuda.current_stream(device)
-    with torch.cuda.stream(_side_stream(device)):
-        out = pil_resize_frames([decode(p, device) for p in paths], size)
-    main.wait_stream(_side_stream(device))
-    out.record_stream(main)
-    return out
+def frame_cache(budget_mb: int, device="cuda") -> DeviceFrameCache:
+    """The decoded-frame cache of the card's route."""
+    return DeviceFrameCache(budget_mb, device)

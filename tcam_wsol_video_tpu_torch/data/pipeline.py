@@ -5,11 +5,16 @@ data/pipeline.py: shuffle, per-shard slices with tail padding, the
 Each batch is a dict of tensors on `device` in the layout of
 engine/steps.py (image and raw_img (B, c, c, 3), std_cam, roi and
 msk_bbox (B, c, c), label, has_cam, seq_iter, frm_iter, fg_size and
-valid (B,)) plus `image_id`, a list of frame ids.  The pixels come from
-the device's image route: libjpeg on the host for a CPU device
-(data/native_loader.py, bit-equal to the JAX package's native path),
-nvJPEG on the card for a CUDA device (data/nvjpeg_loader.py).  The CAM
-planes take the image's crop and flip.  On a CUDA device a batch whose
+valid (B,)) plus `image_id`, a list of frame ids.
+
+One planner samples every epoch (`DataPipeline.plan_batches`): each
+batch's frame ids, labels, crops and flips, the tiling that fills a short
+batch with whole clips, and its valid mask.  The streamed route loads
+each plan as it comes; the card-resident feed stacks its epoch's plans
+(data/device_feed.py).  The pixels come from the device's image route
+(data/image_route.py): libjpeg on the host for a CPU device, bit-equal to
+the JAX package's native path, nvJPEG on the card for a CUDA device.  The
+CAM planes take the image's crop and flip.  On a CUDA device a batch whose
 stored CAMs share one shape crosses as its CAM windows (B, T, h, w) and
 its planes are made there in one batched pass (`card_cam_planes`, the
 card-resident feed's device_feed.assemble_cam_planes); on a CPU device,
@@ -25,8 +30,8 @@ decode_cache_mb, train_device_cache_mb):
   (engine/steps.expand_compact_batch).  On the card the pixels are
   rounded there and stay uint8; the host planes cross packed.
 - decode_cache_mb: frames decoded at resize resolution, rounded to uint8,
-  kept across epochs in an LRU (native_loader.DecodedFrameCache on the
-  host, nvjpeg_loader.DeviceFrameCache on the card).
+  kept across epochs in an LRU (the image route's frame_cache: in host
+  memory on the CPU, in device memory on the card).
 - train_device_cache_mb: the card-resident train feed
   (data/device_feed.DeviceTrainFeed) serves the train epochs when the
   frames pool fits the budget; `data_route` says which route ran.
@@ -40,7 +45,6 @@ the batch's frames by the route its CAM side took.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -48,10 +52,10 @@ import torch
 
 from tcam_wsol_video_tpu_torch.core.clock import TRACE
 from tcam_wsol_video_tpu_torch.core.prng import KeyChain
-from tcam_wsol_video_tpu_torch.data import native_loader, nvjpeg_loader
 from tcam_wsol_video_tpu_torch.data.dataset import WSOLVideoDataset
 from tcam_wsol_video_tpu_torch.data.device_feed import (DeviceTrainFeed,
                                                        assemble_cam_planes)
+from tcam_wsol_video_tpu_torch.data.image_route import route_for
 from tcam_wsol_video_tpu_torch.data.transforms import to_device
 
 _STACK_KEYS = ("image", "label", "raw_img", "std_cam", "has_cam",
@@ -60,41 +64,38 @@ _STACK_KEYS = ("image", "label", "raw_img", "std_cam", "has_cam",
 _CAM_KEYS = ("std_cam", "has_cam", "roi", "msk_bbox", "fg_size")
 
 
-def collate(items: List[dict]) -> Dict[str, np.ndarray]:
-    """Stack sample dicts (clips flattened clip-major)."""
-    batch: Dict[str, np.ndarray] = {}
-    for k in _STACK_KEYS:
-        batch[k] = np.stack([it[k] for it in items])
-    batch["image_id"] = [it["image_id"] for it in items]
-    return batch
-
-
 def _take(v, idx: np.ndarray):
     if isinstance(v, torch.Tensor):
         return v[to_device(idx, v.device)]
     return v[idx]
 
 
-def pad_batch_by_tiling(batch: dict, target: int, clip_len: int = 1
-                        ) -> dict:
-    """Fill a short batch by repeating whole clips and mark the repeats
-    invalid, so that metrics count every image once.  Entries are numpy
-    arrays or tensors."""
-    n = batch["label"].shape[0]
+def tiling_index(n: int, target: int, clip_len: int = 1
+                 ) -> Optional[np.ndarray]:
+    """The rows of a batch of n frames that fill it to target frames by
+    repeating whole clips, in order; None when it is full."""
     if n % clip_len:
         raise ValueError(f"{n} frames are not whole clips of {clip_len}")
-    n_clips = n // clip_len
+    if n == target:
+        return None
+    clips = np.arange(target // clip_len) % (n // clip_len)
+    return (clips[:, None] * clip_len + np.arange(clip_len)).ravel()
+
+
+def pad_batch_by_tiling(batch: dict, target: int, clip_len: int = 1
+                        ) -> dict:
+    """Fill a short batch by repeating whole clips (tiling_index) and mark
+    the repeats invalid, so that metrics count every image once.  Entries
+    are numpy arrays or tensors."""
+    n = batch["label"].shape[0]
+    idx = tiling_index(n, target, clip_len)
     valid = np.zeros(target, bool)
     valid[:n] = True
-    if n == target:
-        batch = dict(batch)
-        batch["valid"] = valid
-        return batch
-    reps = [i % n_clips for i in range(target // clip_len)]
-    idx = np.concatenate([np.arange(r * clip_len, (r + 1) * clip_len)
-                          for r in reps])
-    out = {k: _take(batch[k], idx) for k in _STACK_KEYS}
-    out["image_id"] = [batch["image_id"][i] for i in idx]
+    if idx is None:
+        out = dict(batch)
+    else:
+        out = {k: _take(batch[k], idx) for k in _STACK_KEYS}
+        out["image_id"] = [batch["image_id"][i] for i in idx]
     out["valid"] = valid
     return out
 
@@ -131,14 +132,14 @@ def card_cam_planes(ds: WSOLVideoDataset, fids: List[str], ys, xs, flips,
                     ) -> Optional[Dict[str, torch.Tensor]]:
     """The CAM planes of the frames `fids` under their crops (ys, xs) of
     the (r, r) resize and flips, made on `device` from their stored CAM
-    windows (the feed's plan layout: (B, T) windows of
-    ds._temporal_frames, T = ds.cam_window_len()) by
+    windows (the feed's plan layout: (B, T) windows of ds.cam_window,
+    T = ds.cam_window_len()) by
     device_feed.assemble_cam_planes, as cam_roi_for's planes.  The host
     reads the windows and sends them with the draws and thresholds in
     pinned, non-blocking copies, and syncs nothing.  None when the
     stored CAMs differ in shape."""
     t_cap = ds.cam_window_len()
-    wins = [ds._temporal_frames(fid)[:t_cap] for fid in fids]
+    wins = [ds.cam_window(fid) for fid in fids]
     cams = {f: ds.cam_store.load_cam(f) for win in wins for f in win}
     if len({cam.shape for cam in cams.values()}) != 1:
         return None
@@ -196,24 +197,21 @@ class DataPipeline:
         self.drop_remainder = drop_remainder
         self.device = torch.device(device)
         self.compact = compact
-        self._decode_cache = None
-        if decode_cache_mb > 0:
-            self._decode_cache = (
-                native_loader.DecodedFrameCache(decode_cache_mb)
-                if self.device.type == "cpu"
-                else nvjpeg_loader.DeviceFrameCache(decode_cache_mb,
-                                                    self.device))
-        self._device_feed = None
+        self.codec = route_for(self.device)
+        self._decode_cache = (
+            self.codec.frame_cache(decode_cache_mb, self.device)
+            if decode_cache_mb > 0 else None)
+        self.device_feed = None
         if train_device_cache_mb > 0:
             feed = DeviceTrainFeed(self, train_device_cache_mb)
-            self._device_feed = feed if feed.enabled else None
+            self.device_feed = feed if feed.enabled else None
         self._cache_seen = (0, 0)
 
     @property
     def data_route(self) -> str:
         """'device_feed' when the card-resident feed serves the epochs,
         else 'stream'."""
-        return "stream" if self._device_feed is None else "device_feed"
+        return "stream" if self.device_feed is None else "device_feed"
 
     def epoch_stats(self) -> dict:
         """The data plane since the last call: its route and the
@@ -252,19 +250,63 @@ class DataPipeline:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _load_pixels(self, paths, resize, crop, xs, ys, flips):
-        if self.device.type == "cpu":
-            load = (native_loader.load_batch if self._decode_cache is None
-                    else self._decode_cache.load_batch)
-            norm, raw = load(paths, resize=resize, crop=crop,
-                             xs=np.asarray(xs), ys=np.asarray(ys),
-                             flips=np.asarray(flips))
-            return torch.from_numpy(norm), torch.from_numpy(raw)
+    def plan_batches(self, epoch: int, subset: Optional[np.ndarray] = None
+                     ) -> Iterator[dict]:
+        """The epoch's sampling, one batch's host plan a step (the dataset
+        set to the epoch): its n real frames clip-major, each clip frame
+        with its own draws.  A plan holds ids (the frame ids), label (n,)
+        int32, seq_iter and frm_iter (n,) float32, ys and xs (n,) int64
+        and flips (n,) bool (KeyChain("aug", split, epoch, index, frame):
+        ys, then xs, then the flip; zeros on an eval split), tile (the
+        tiling_index that fills the batch with whole clips, None when it
+        is full) and valid (batch_size * clip_len,) bool."""
+        ds = self.ds
+        c = ds.crop_size
+        train = ds.transform.train
+        r = ds.transform.resize_size if train else c
+        clip_len = ds.clip_len
+        target = self.batch_size * clip_len
+        idxs, shard_valid = self._epoch_indices_valid(epoch, subset)
+        for s in range(0, len(idxs), self.batch_size):
+            chunk = idxs[s:s + self.batch_size]
+            if self.drop_remainder and len(chunk) < self.batch_size:
+                return
+            ids, labels, seqs, frms, draws = [], [], [], [], []
+            for idx in chunk:
+                idx = int(idx)
+                clip = ds.sample_ids(idx)
+                ids += clip
+                labels += [ds.md.labels[ds.md.image_ids[idx]]] * len(clip)
+                seqs += [idx] * len(clip)
+                frms += range(len(clip))
+                if train:
+                    for fi in range(len(clip)):
+                        rng = ds.kc.numpy_rng("aug", ds.split, epoch, idx, fi)
+                        draws.append((rng.integers(0, r - c + 1),
+                                      rng.integers(0, r - c + 1),
+                                      rng.random() < ds.transform.hflip_p))
+            n = len(ids)
+            ys, xs, flips = (np.asarray(draws, np.int64).T.copy() if train
+                             else np.zeros((3, n), np.int64))
+            valid = np.zeros(target, bool)
+            valid[:n] = np.repeat(shard_valid[s:s + len(chunk)], clip_len)
+            yield {"ids": ids, "label": np.asarray(labels, np.int32),
+                   "seq_iter": np.asarray(seqs, np.float32),
+                   "frm_iter": np.asarray(frms, np.float32), "ys": ys,
+                   "xs": xs, "flips": flips.astype(bool),
+                   "tile": tiling_index(n, target, clip_len),
+                   "valid": valid}
+
+    def load_pixels(self, paths: List[str], resize: int, crop: int, xs, ys,
+                    flips):
+        """(normalized, raw) (N, crop, crop, 3) float32 on the pipeline's
+        device from its image route, through the decoded-frame cache when
+        it is on."""
         if self._decode_cache is not None:
             return self._decode_cache.load_batch(paths, resize, crop, xs,
                                                  ys, flips)
-        return nvjpeg_loader.load_batch(paths, resize, crop, xs, ys, flips,
-                                        self.device)
+        return self.codec.load_batch(paths, resize, crop, xs, ys, flips,
+                                     self.device)
 
     def _cam_planes(self, fids: List[str], ys, xs, flips, r: int) -> dict:
         """A streamed batch's CAM planes: on the card from the stored CAM
@@ -280,68 +322,37 @@ class DataPipeline:
         TRACE.count("data.cams_host", len(fids))
         return host_cam_planes(self.ds, fids, ys, xs, flips)
 
-    def _epoch_native(self, epoch: int, idxs: np.ndarray,
-                      shard_valid: np.ndarray,
-                      target: int) -> Iterator[dict]:
-        """Resolves each batch's frame ids and augmentation draws on the
-        host (clip-major; each clip frame with its own draw), decodes the
-        batch in one loader call and pairs each CAM with its image's
-        crop and flip."""
+    def _stream(self, epoch: int, subset: Optional[np.ndarray]
+                ) -> Iterator[dict]:
+        """Loads each plan as it is drawn: the batch's real frames decoded
+        in one image-route call, each CAM paired with its image's crop and
+        flip, then the clips tiled into a short batch."""
         ds = self.ds
         c = ds.crop_size
         r = ds.transform.resize_size if ds.transform.train else c
-        clip_len = ds.clip_len
-        for s in range(0, len(idxs), self.batch_size):
-            chunk = idxs[s:s + self.batch_size]
-            if self.drop_remainder and len(chunk) < self.batch_size:
-                return
-            fids, labels, xs, ys, flips, seqs, frms = ([] for _ in range(7))
-            for idx in chunk:
-                ids = ds.sample_ids(int(idx))
-                lab = ds.md.labels[ds.md.image_ids[int(idx)]]
-                for fi, fid in enumerate(ids):
-                    fids.append(fid)
-                    labels.append(lab)
-                    seqs.append(np.float32(idx))
-                    frms.append(np.float32(fi))
-                    if ds.transform.train:
-                        rng = ds.kc.numpy_rng("aug", ds.split, epoch,
-                                              int(idx), fi)
-                        ys.append(int(rng.integers(0, r - c + 1)))
-                        xs.append(int(rng.integers(0, r - c + 1)))
-                        flips.append(int(rng.random()
-                                         < ds.transform.hflip_p))
-                    else:
-                        ys.append(0)
-                        xs.append(0)
-                        flips.append(0)
+        target = self.batch_size * ds.clip_len
+        for plan in self.plan_batches(epoch, subset):
+            fids, ys, xs, flips = (plan[k] for k in ("ids", "ys", "xs",
+                                                    "flips"))
             with TRACE.span("data.pixels"):
-                norm, raw = self._load_pixels(
+                norm, raw = self.load_pixels(
                     [f"{ds.data_root}/{f}" for f in fids], r, c, xs, ys,
                     flips)
-            n = len(fids)
             if ds.cam_store is None:
                 # no CAM side: the empty planes are the wait's own time
-                planes = _empty_cam_planes(n, c)
+                planes = _empty_cam_planes(len(fids), c)
             else:
                 with TRACE.span("data.cams"):
                     planes = self._cam_planes(fids, ys, xs, flips, r)
-            batch = {
-                "image": norm,
-                "label": np.asarray(labels, np.int32),
-                "raw_img": raw,
-                "std_cam": planes["std_cam"],
-                "has_cam": planes["has_cam"],
-                "seq_iter": np.asarray(seqs, np.float32),
-                "frm_iter": np.asarray(frms, np.float32),
-                "roi": planes["roi"],
-                "msk_bbox": planes["msk_bbox"],
-                "fg_size": planes["fg_size"],
-                "image_id": fids,
-            }
-            out = pad_batch_by_tiling(batch, target, clip_len)
-            out["valid"][:n] &= np.repeat(shard_valid[s:s + len(chunk)],
-                                          clip_len)
+            batch = {"image": norm, "label": plan["label"], "raw_img": raw,
+                     "std_cam": planes["std_cam"],
+                     "has_cam": planes["has_cam"],
+                     "seq_iter": plan["seq_iter"],
+                     "frm_iter": plan["frm_iter"], "roi": planes["roi"],
+                     "msk_bbox": planes["msk_bbox"],
+                     "fg_size": planes["fg_size"], "image_id": fids}
+            out = pad_batch_by_tiling(batch, target, ds.clip_len)
+            out["valid"] = plan["valid"]
             if self.compact:
                 out = compact_batch(out)
             yield self._to_device(out)
@@ -359,9 +370,7 @@ class DataPipeline:
         clip-major) on the pipeline's device: from the card-resident feed
         when it is on, else streamed (packed when compact)."""
         self.ds.set_epoch(epoch)
-        if self._device_feed is not None:
-            yield from self._device_feed.epoch(epoch, subset)
+        if self.device_feed is not None:
+            yield from self.device_feed.epoch(epoch, subset)
             return
-        idxs, shard_valid = self._epoch_indices_valid(epoch, subset)
-        yield from self._epoch_native(epoch, idxs, shard_valid,
-                                      self.batch_size * self.ds.clip_len)
+        yield from self._stream(epoch, subset)

@@ -5,77 +5,40 @@ It writes real JPEG frames (quality 95) and the wsol-done-right folds, so
 the data -> model -> CAM -> metric path runs without YouTube-Objects on
 disk: train ids are shot directories, eval ids are frames.  The tree, the
 folds files and the random draws are the JAX generator's for the same
-arguments.  The JPEGs are written by the device's codec: libjpeg on the
-host for a CPU device (csrc/jpeg_write.cpp), nvJPEG on the card for a
-CUDA device (data/nvjpeg_loader.py).  `make_stand_in_cam_store` writes a
+arguments.  The JPEGs are written by the device's image route
+(data/image_route.py): libjpeg on the host for a CPU device, nvJPEG on
+the card for a CUDA device.  `make_stand_in_cam_store` writes a
 CAM store that stands in for a stage-1 classifier's (the GT box blurred,
 plus noise).
 """
 from __future__ import annotations
 
 import colorsys
-import ctypes
-import functools
 import os
 from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 
-from tcam_wsol_video_tpu_torch.core import nativebuild
 from tcam_wsol_video_tpu_torch.data.cam_store import CamStore
 from tcam_wsol_video_tpu_torch.data.folds import load_split_metadata
+from tcam_wsol_video_tpu_torch.data.image_route import route_for
 
 JPEG_QUALITY = 95
 
 
-@functools.lru_cache(maxsize=1)
-def _jpeg_write_lib() -> ctypes.CDLL:
-    lib = nativebuild.load("jpeg_write")
-    lib.write_jpeg_rgb.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.write_jpeg_rgb.restype = ctypes.c_int
-    lib.encode_jpeg_rgb.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
-    lib.encode_jpeg_rgb.restype = ctypes.c_int
-    return lib
-
-
 def encode_jpeg(img: np.ndarray, device="cuda",
                 quality: int = JPEG_QUALITY) -> bytes:
-    """(h, w, 3) uint8 RGB -> baseline JPEG bytes, by the device's codec
-    (libjpeg for a CPU device, nvJPEG on the card)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w, _ = img.shape
-    if torch.device(device).type != "cpu":
-        from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
-        return nvjpeg_loader.encode(img, quality, device)
-    cap = 2 * img.size + 65536
-    out = np.empty(cap, np.uint8)
-    n = ctypes.c_size_t()
-    rc = _jpeg_write_lib().encode_jpeg_rgb(img.ctypes.data, h, w, quality,
-                                           out.ctypes.data, cap,
-                                           ctypes.byref(n))
-    if rc != 0:
-        raise IOError(f"libjpeg could not encode a {h}x{w} frame ({rc})")
-    return out[:n.value].tobytes()
+    """(h, w, 3) uint8 RGB -> baseline JPEG bytes, by the device's image
+    route."""
+    return route_for(device).encode(img, quality, device)
 
 
 def write_jpeg(path: str, img: np.ndarray, device="cuda",
                quality: int = JPEG_QUALITY) -> None:
-    """(h, w, 3) uint8 RGB -> a baseline JPEG file."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w, _ = img.shape
-    if torch.device(device).type == "cpu":
-        rc = _jpeg_write_lib().write_jpeg_rgb(path.encode(), img.ctypes.data,
-                                              h, w, quality)
-        if rc != 0:
-            raise IOError(f"libjpeg could not write {path} ({rc})")
-        return
-    from tcam_wsol_video_tpu_torch.data import nvjpeg_loader
+    """(h, w, 3) uint8 RGB -> a baseline JPEG file, by the device's image
+    route."""
     with open(path, "wb") as f:
-        f.write(nvjpeg_loader.encode(img, quality, device))
+        f.write(encode_jpeg(img, device, quality))
 
 
 def _draw_frame(h: int, w: int, box: Tuple[int, int, int, int],

@@ -20,7 +20,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -173,17 +173,3 @@ def pil_bilinear_resize(frames: torch.Tensor, size: Tuple[int, int]
     if x.shape[1] != h:
         x = _pil_pass(x, h, 1)
     return x.to(torch.uint8)
-
-
-def pil_resize_frames(frames: Sequence[torch.Tensor], size: Tuple[int, int]
-                      ) -> torch.Tensor:
-    """pil_bilinear_resize of (h_i, w_i, 3) uint8 frames of any sizes,
-    frames of one size together -> (N, h, w, 3) uint8 in input order."""
-    groups: dict = {}
-    for i, f in enumerate(frames):
-        groups.setdefault(tuple(f.shape), []).append(i)
-    out = frames[0].new_empty((len(frames), int(size[0]), int(size[1]), 3))
-    for ids in groups.values():
-        out[ids] = pil_bilinear_resize(torch.stack([frames[i] for i in ids]),
-                                       size)
-    return out

@@ -349,7 +349,7 @@ class Trainer:
         use_student = self._student_for(epoch)
         student = self._student if use_student else None
 
-        feed = getattr(self.train_pipe, "_device_feed", None)
+        feed = self.train_pipe.device_feed
         chunked = scan_train.engages(args, feed, use_student,
                                      self._recompute_cams)
         self.mesh.clock = SpanClock(self.device)
@@ -684,7 +684,7 @@ class Trainer:
                 labels = [ds.md.labels[ds.md.image_ids[i]]
                           for i in range(n)]
                 c = ds.crop_size
-                norm, raw = self.train_pipe._load_pixels(
+                norm, raw = self.train_pipe.load_pixels(
                     [f"{ds.data_root}/{f}" for f in fids], c, c, [0] * n,
                     [0] * n, [0] * n)
                 self._progress = (

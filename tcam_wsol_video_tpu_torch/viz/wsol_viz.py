@@ -388,12 +388,13 @@ def write_mjpeg_avi(jpegs: List[bytes], path: str, w: int, h: int,
 def build_demo_video(frames: List[np.ndarray], path: str, fps: int = 8,
                      device="cpu", quality: int = 95) -> None:
     """RGB frames (H, W, 3) -> a Motion-JPEG AVI at path, each frame
-    encoded by the device's JPEG codec."""
-    from tcam_wsol_video_tpu_torch.data.synthetic import encode_jpeg
+    encoded by the device's image route (data/image_route.py)."""
+    from tcam_wsol_video_tpu_torch.data.image_route import route_for
     if not frames:
         raise ValueError("a demo video needs at least one frame")
     h, w = frames[0].shape[:2]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    jpegs = [encode_jpeg(np.clip(f, 0, 255).astype(np.uint8), device,
-                         quality) for f in frames]
+    codec = route_for(device)
+    jpegs = [codec.encode(np.clip(f, 0, 255).astype(np.uint8), quality,
+                          device) for f in frames]
     write_mjpeg_avi(jpegs, path, w, h, fps)

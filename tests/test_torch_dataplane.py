@@ -119,11 +119,12 @@ def synth(tmp_path_factory):
     return {**out, "root": root, "cams": os.path.join(root, "cams")}
 
 
-def _datasets(synth, knn, method, split=C.TRAINSET):
+def _datasets(synth, knn, method, split=C.TRAINSET, knn_tc=0):
     train = split == C.TRAINSET
     mode = C.TIME_BEFORE_AFTER if knn else C.TIME_INSTANT
     kw = dict(crop_size=CROP, sl_tc_knn=knn, sl_tc_knn_mode=mode,
-              use_roi=True, roi_method=method, p_min_area_roi=0.05)
+              use_roi=True, roi_method=method, p_min_area_roi=0.05,
+              knn_tc=knn_tc)
     jds = JDataset(jload_split(synth["metadata_root"], split),
                    synth["data_root"], split, JC.YTOV1,
                    JPT(RESIZE, CROP, train=train), JKeyChain(7),
@@ -243,25 +244,37 @@ def test_device_feed_matches_jax(synth, knn, method):
             if agree == 1.0:
                 np.testing.assert_array_equal(b["msk_bbox"].numpy(),
                                               np.asarray(a["msk_bbox"]))
-    feed = pipe._device_feed
+    feed = pipe.device_feed
     assert feed.decodes.max() == 1
     assert feed.decodes.sum() == feed.resident.sum() > 0
 
 
-@pytest.mark.parametrize("knn", [0, 1])
-def test_device_feed_replays_the_streamed_route(synth, knn):
+# (knn_tc, batch): clips of 3 frames at 5 clips a batch, so the last batch
+# of the 12 shots holds 2 clips and is tiled with whole clips to 15 frames
+SHORT_TAIL = (1, 5)
+
+
+@pytest.mark.parametrize("knn,knn_tc,batch", [
+    pytest.param(0, 0, BATCH, id="0"), pytest.param(1, 0, BATCH, id="1"),
+    pytest.param(1, *SHORT_TAIL, id="1-clips_short_tail")])
+def test_device_feed_replays_the_streamed_route(synth, knn, knn_tc, batch):
     """The port's feed against its own streamed compact route with the
     decoded-frame cache: the same ids, bit-equal pixels, the CAM side
-    within the packing and float rounding."""
-    _, ds_s = _datasets(synth, knn, C.ROI_LARGEST)
-    _, ds_d = _datasets(synth, knn, C.ROI_LARGEST)
-    pipe_s = DataPipeline(ds_s, BATCH, KeyChain(7), compact=True,
+    within the packing and float rounding; a short batch of clips is
+    tiled alike, its repeats invalid."""
+    _, ds_s = _datasets(synth, knn, C.ROI_LARGEST, knn_tc=knn_tc)
+    _, ds_d = _datasets(synth, knn, C.ROI_LARGEST, knn_tc=knn_tc)
+    pipe_s = DataPipeline(ds_s, batch, KeyChain(7), compact=True,
                           decode_cache_mb=64, device="cpu")
-    pipe_d = DataPipeline(ds_d, BATCH, KeyChain(7), compact=True,
+    pipe_d = DataPipeline(ds_d, batch, KeyChain(7), compact=True,
                           train_device_cache_mb=64, device="cpu")
     assert pipe_s.data_route == "stream"
+    frames = len(ds_s) * ds_s.clip_len
     for epoch in (0, 1):
-        for bs, bd in zip(pipe_s.epoch(epoch), pipe_d.epoch(epoch)):
+        n_valid = 0
+        for bs, bd in zip(pipe_s.epoch(epoch), pipe_d.epoch(epoch),
+                          strict=True):
+            n_valid += int(bd["valid"].sum())
             assert bs["image_id"] == bd["image_id"]
             for k in ("raw_u8", "label", "valid", "seq_iter", "frm_iter"):
                 np.testing.assert_array_equal(bs[k].numpy(), bd[k].numpy(),
@@ -275,9 +288,11 @@ def test_device_feed_replays_the_streamed_route(synth, knn):
             np.testing.assert_allclose(bd["fg_size"].numpy(),
                                        bs["fg_size"].numpy(),
                                        atol=STREAM_FG_ATOL, rtol=0)
+        # the streamed route decodes the real frames only
+        assert n_valid == frames
         stats = pipe_s.epoch_stats()
         assert stats["data_route"] == "stream"
-        assert stats["cache_hits"] + stats["cache_misses"] == 12
+        assert stats["cache_hits"] + stats["cache_misses"] == frames
     assert pipe_s.epoch_stats()["cache_misses"] == 0    # nothing new
 
 

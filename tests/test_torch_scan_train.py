@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dataplane import BATCH, _datasets, synth  # noqa: F401
+from test_torch_dataplane import (BATCH, SHORT_TAIL, _datasets,  # noqa: F401
+                                  synth)
 from tcam_wsol_video_tpu.data import pipeline as jpipeline
 from tcam_wsol_video_tpu.core.prng import KeyChain as JKeyChain
 from tcam_wsol_video_tpu_torch.cams.temporal import fuse_temporal_max
@@ -50,15 +51,17 @@ EPOCH0_RTOL = 1e-3
 EPOCH1_RTOL = 5e-2
 
 
-@pytest.mark.parametrize("knn", [0, 1])
-def test_epoch_plan_matches_jax(synth, knn):  # noqa: F811
-    jds, ds = _datasets(synth, knn, C.ROI_LARGEST)
-    jpipe = jpipeline.DataPipeline(jds, BATCH, JKeyChain(7), shuffle=True,
+@pytest.mark.parametrize("knn,knn_tc,batch", [
+    pytest.param(0, 0, BATCH, id="0"), pytest.param(1, 0, BATCH, id="1"),
+    pytest.param(1, *SHORT_TAIL, id="1-clips_short_tail")])
+def test_epoch_plan_matches_jax(synth, knn, knn_tc, batch):  # noqa: F811
+    jds, ds = _datasets(synth, knn, C.ROI_LARGEST, knn_tc=knn_tc)
+    jpipe = jpipeline.DataPipeline(jds, batch, JKeyChain(7), shuffle=True,
                                    num_workers=1, compact=True,
                                    train_device_cache_mb=64)
-    pipe = DataPipeline(ds, BATCH, KeyChain(7), shuffle=True, compact=True,
+    pipe = DataPipeline(ds, batch, KeyChain(7), shuffle=True, compact=True,
                         train_device_cache_mb=64, device="cpu")
-    jfeed, feed = jpipe._device_feed, pipe._device_feed
+    jfeed, feed = jpipe._device_feed, pipe.device_feed
     for epoch in (0, 1):
         jplan, jids, jt = jfeed.epoch_plan(epoch)
         TRACE.take()
@@ -66,6 +69,8 @@ def test_epoch_plan_matches_jax(synth, knn):  # noqa: F811
         counts = TRACE.take()[1]
         assert ids == jids and t == jt
         assert set(plan) == set(jplan)
+        # every sampled frame once, the tiled repeats invalid
+        assert plan["valid"].sum() == len(ds) * ds.clip_len
         for k, v in jplan.items():
             np.testing.assert_array_equal(plan[k], np.asarray(v), err_msg=k)
         # the burst made the same frames resident, each decoded once
