@@ -18,6 +18,13 @@ share the model, as in JAX.
 freeze_cl: the encoder and head run without autograd and keep their BN
 in inference mode (the JAX model's stop_gradient + enc_train=False); the
 decoder BN still trains.
+
+The decoder and the heads keep their activations channels-last (NCHW
+shape, NHWC memory), as the encoder's already are: cuDNN then runs its
+NHWC convolutions with no layout transposes, BatchNorm takes torch's
+channels-last kernels, and fcams and im_recon come out as contiguous
+NHWC tensors.  The resizes are the separable products of
+ops/interpolate's matrices, taken on the NHWC memory by `_resize_cl`.
 """
 from __future__ import annotations
 
@@ -30,7 +37,25 @@ from torch import nn
 from tcam_wsol_video_tpu_torch.models.poolings import build_pooling_head
 from tcam_wsol_video_tpu_torch.models.resnet import BatchNorm2d, conv
 from tcam_wsol_video_tpu_torch.ops.interpolate import (
-    resize_bilinear, resize_nearest, resize_nearest_then_bilinear)
+    _linear_matrix, _nearest_matrix, _on, _snap_matrix)
+
+_CL = torch.channels_last
+
+
+def _resize_cl(x: torch.Tensor, build, args_h: tuple, args_w: tuple
+               ) -> torch.Tensor:
+    """mh @ x @ mw^T over the spatial axes of the NCHW-shaped x, with
+    mh = build(*args_h) (p, h) and mw = build(*args_w) (q, w): the
+    products of ops/interpolate's separable resize in its order (rows,
+    then columns), taken as two matmuls on the NHWC memory so that the
+    result is channels-last with no copy."""
+    n, c, h, w = x.shape
+    mh = _on(x.device, x.dtype, build, *args_h)
+    mw = _on(x.device, x.dtype, build, *args_w)
+    p, q = mh.shape[0], mw.shape[0]
+    y = torch.matmul(mh, x.permute(0, 2, 3, 1).reshape(n, h, w * c))
+    y = torch.matmul(mw, y.view(n * p, w, c))
+    return y.view(n, p, q, c).permute(0, 3, 1, 2)
 
 
 class Conv2dReLU(nn.Module):
@@ -55,13 +80,13 @@ class DecoderBlock(nn.Module):
                 skip: Optional[torch.Tensor]) -> torch.Tensor:
         h, w = x.shape[-2:]
         if skip is not None and (2 * h, 2 * w) != tuple(skip.shape[-2:]):
-            x = resize_nearest_then_bilinear(
-                x, (2 * h, 2 * w), skip.shape[-2:], align_corners=True,
-                layout="nchw")
+            sh, sw = skip.shape[-2:]
+            x = _resize_cl(x, _snap_matrix, (h, 2 * h, sh, True),
+                           (w, 2 * w, sw, True))
         else:
-            x = resize_nearest(x, (2 * h, 2 * w), layout="nchw")
+            x = _resize_cl(x, _nearest_matrix, (h, 2 * h), (w, 2 * w))
         if skip is not None:
-            x = torch.cat([x, skip], dim=1)
+            x = torch.cat([x, skip.contiguous(memory_format=_CL)], dim=1)
         return self.conv2(self.conv1(x))
 
 
@@ -97,7 +122,7 @@ class UnetDecoder(nn.Module):
 
     def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
         feats = list(features[1:])[::-1]
-        x, skips = feats[0], feats[1:]
+        x, skips = feats[0].contiguous(memory_format=_CL), feats[1:]
         if self.center is not None:
             x = self.center(x)
         for i in range(self.blocks):
@@ -170,9 +195,10 @@ class UnetFCAM(nn.Module):
                                                             generator)
         dec = self.decoder(features)
         fcams = self.segmentation_head(dec)
-        if tuple(fcams.shape[-2:]) != tuple(x.shape[1:3]):
-            fcams = resize_bilinear(fcams, x.shape[1:3], align_corners=True,
-                                    layout="nchw")
+        (h, w), (hi, wi) = fcams.shape[-2:], x.shape[1:3]
+        if (h, w) != (hi, wi):
+            fcams = _resize_cl(fcams, _linear_matrix, (h, hi, True),
+                               (w, wi, True))
         im_recon = None
         if self.reconstruction_head is not None:
             im_recon = self.reconstruction_head(dec).permute(0, 2, 3, 1)

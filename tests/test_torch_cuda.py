@@ -222,25 +222,17 @@ def test_std_cl_eval_step_on_the_card_matches_cpu(card):
         TF32_RTOL * logits.abs().max()
 
 
-def test_bf16_tcam_step_on_the_card(card, monkeypatch):
-    """One stage-2 step at the default compute dtype (bfloat16) on the
-    card: every convolution hands cuDNN bf16 inputs and weights, the
-    exact CRF kernel (fp32 inputs, as JAX casts them) launches once, no
-    plain version runs, and the parameters and their gradients stay
-    fp32."""
+def _tcam_step(card, model):
+    """One stage-2 train step of `model` at the recipe's compute dtype
+    (bfloat16), batch 2 at 64 px, as a callable returning its metrics."""
     from tcam_wsol_video_tpu_torch.cams.seeding import seeder_cfg_from_args
     from tcam_wsol_video_tpu_torch.core.config import stage2_tcam_recipe
     from tcam_wsol_video_tpu_torch.engine.optim import build_optimizer
     from tcam_wsol_video_tpu_torch.engine.state import TrainState
     from tcam_wsol_video_tpu_torch.engine.steps import make_train_step
     from tcam_wsol_video_tpu_torch.losses.build import get_loss_tcam
-    from tcam_wsol_video_tpu_torch.models import resnet
-    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
     args = stage2_tcam_recipe(crop_size=64, batch_size=2)
     assert args.compute_dtype == "bfloat16"
-    torch.manual_seed(0)
-    model = UnetTCAM(resnet.ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10,
-                     freeze_cl=True).to(card)
     state = TrainState(model, build_optimizer(args, model, args.lr),
                        args.elb_init_t)
     master = get_loss_tcam(args)
@@ -251,6 +243,23 @@ def test_bf16_tcam_step_on_the_card(card, monkeypatch):
              "label": torch.tensor([1, 4], device=card),
              "std_cam": torch.rand((2, 64, 64), generator=g, device=card),
              "roi": torch.ones((2, 64, 64), dtype=torch.int32, device=card)}
+    run = make_train_step(master, args, seeder_cfg_from_args(args))
+    return lambda: run(state, batch, master.switches(0), True,
+                       generator=torch.Generator(device=card).manual_seed(1))
+
+
+def test_bf16_tcam_step_on_the_card(card, monkeypatch):
+    """One stage-2 step at the default compute dtype (bfloat16) on the
+    card: every convolution hands cuDNN bf16 inputs and weights, the
+    exact CRF kernel (fp32 inputs, as JAX casts them) launches once, no
+    plain version runs, and the parameters and their gradients stay
+    fp32."""
+    from tcam_wsol_video_tpu_torch.models import resnet
+    from tcam_wsol_video_tpu_torch.models.unet import UnetTCAM
+    torch.manual_seed(0)
+    model = UnetTCAM(resnet.ResNetWSOL(layers=(1, 1, 1, 1)), "WGAP", 10,
+                     freeze_cl=True).to(card)
+    step = _tcam_step(card, model)
     seen = set()
     conv = resnet.Conv2d._conv_forward
 
@@ -263,9 +272,7 @@ def test_bf16_tcam_step_on_the_card(card, monkeypatch):
                 landmarks.out_counts)
     for c in counters:
         c.reset()
-    met = make_train_step(master, args, seeder_cfg_from_args(args))(
-        state, batch, master.switches(0), True,
-        generator=torch.Generator(device=card).manual_seed(1))
+    met = step()
     torch.cuda.synchronize()
     assert seen == {(torch.bfloat16, torch.bfloat16, "cuda")}
     assert bilateral.counts.kernel == 1
@@ -274,6 +281,38 @@ def test_bf16_tcam_step_on_the_card(card, monkeypatch):
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(p.grad.dtype == torch.float32 for p in model.parameters()
                if p.grad is not None)
+
+
+def test_tcam_decoder_runs_channels_last_on_the_card(card, tmp_path):
+    """One bf16 train step of UnetTCAM on ResNet-50 (freeze_cl), traced:
+    every BatchNorm kernel is torch's channels-last one and cuDNN runs no
+    NCHW <-> NHWC transpose, so the decoder stays channels-last from the
+    encoder's features to fcams (models/unet.py)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from tcam_wsol_video_tpu_torch.models.factory import create_model
+    torch.manual_seed(0)
+    model = create_model("TCAM", "resnet50", 10, "WGAP", freeze_cl=True,
+                         device=card)
+    step = _tcam_step(card, model)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    # a kernel's own name, without its template arguments (an elementwise
+    # kernel of the running-statistics update names batch_norm in them)
+    names = {k.split("<")[0].lower() for k in kernels}
+    bn = {k for k in names if "batch_norm" in k}
+    assert any("bilateral" in k for k in names)
+    assert bn and all("channels_last" in k for k in bn), sorted(bn)
+    assert not [k for k in names if "nchwtonhwc" in k or "nhwctonchw" in k]
 
 
 def _cbox_args(**kw):
